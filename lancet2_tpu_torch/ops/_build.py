@@ -1,0 +1,82 @@
+"""Build the port's CUDA kernels with nvcc at first use and load them.
+
+Every `csrc/*.cu` is compiled into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), under
+`lancet2_tpu_torch/_build/<hash>/`, where the hash covers the sources and the
+flags. The library is loaded with ctypes. A failed build raises: there is no
+fallback to the plain versions for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+BUILD_INFO: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME): cannot build "
+                           "the CUDA kernels")
+    return path
+
+
+def _sources() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = _sources()
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in srcs:
+            with open(path, "rb") as f:
+                h.update(os.path.basename(path).encode() + f.read())
+        out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
+        so = os.path.join(out_dir, "liblancet2_kernels.so")
+        t0 = time.monotonic()
+        built = False
+        if not os.path.exists(so):
+            os.makedirs(out_dir, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *[s for s in srcs if s.endswith(".cu")]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+                f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            os.replace(tmp, so)
+            built = True
+        _lib = ctypes.CDLL(so)
+        BUILD_INFO.update(path=so, built=built,
+                          seconds=time.monotonic() - t0)
+        return _lib

@@ -1,0 +1,55 @@
+"""Kernel parameters carried across from the JAX package.
+
+The caller has no weights. Its "parameters" are the read->haplotype scoring
+(`lancet2_tpu.ops.affine_dp.READ_TO_HAP`) and the Phred->confidence table
+(`lancet2_tpu.base.phred.PHRED_TO_CONFIDENCE`). Both are imported from the
+JAX package's jax-free modules, never retyped, and turned here into the ints
+and the float32 table that the plain version and the CUDA kernel take.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from lancet2_tpu.base.phred import PHRED_TO_CONFIDENCE
+from lancet2_tpu.ops.affine_dp import READ_TO_HAP, AlignParams
+
+
+@dataclass(frozen=True)
+class KernelParams:
+    match: int
+    mismatch: int
+    gap_open: int
+    gap_extend: int
+    conf: torch.Tensor  # [256] float32: confidence of each Phred value
+
+    def to(self, device: torch.device) -> "KernelParams":
+        if self.conf.device == device:
+            return self
+        return KernelParams(self.match, self.mismatch, self.gap_open,
+                            self.gap_extend, self.conf.to(device))
+
+
+def from_jax(align_params: AlignParams = READ_TO_HAP,
+             conf_table=PHRED_TO_CONFIDENCE) -> KernelParams:
+    """Turn the JAX package's scoring dataclass and confidence table into
+    KernelParams. Only the fitting single-affine mode is ported."""
+    if align_params.dual or not align_params.free_target_ends:
+        raise NotImplementedError(
+            "the evidence DP covers the fitting single-affine mode only")
+    conf = np.asarray(conf_table, np.float32)
+    if conf.shape != (256,):
+        raise ValueError(f"confidence table must have 256 entries, got {conf.shape}")
+    return KernelParams(
+        match=int(align_params.match),
+        mismatch=int(align_params.mismatch),
+        gap_open=int(align_params.gap_open1),
+        gap_extend=int(align_params.gap_extend1),
+        conf=torch.from_numpy(conf.copy()),
+    )
+
+
+READ_TO_HAP_PARAMS = from_jax()

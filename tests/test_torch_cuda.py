@@ -1,0 +1,67 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: without a CUDA device every test skips. This file imports no
+jax, so on a machine with the card and without jax it runs on its own:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+(tests/conftest.py imports jax). Inputs are made from seeds with numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from lancet2_tpu_torch.ops import evidence_cuda as ec
+from lancet2_tpu_torch.ops.evidence_dp import R_MAX, evidence_dp_torch
+from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
+
+
+def _pairs(seed: int, B: int, Lq: int, Lt: int, R: int):
+    """Reads cut from their targets with 3% substitutions; every third pair
+    skips a 40-column run (a deletion longer than the TPU kernel's 31-column
+    descent); R region slots, some inactive, some with negative starts."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 4, (B, Lt)).astype(np.uint8)
+    q = np.full((B, Lq), 5, np.uint8)
+    q_lens = rng.integers(Lq // 2, Lq + 1, B).astype(np.int32)
+    for b in range(B):
+        ql = int(q_lens[b])
+        gap = 40 if b % 3 == 0 else 0
+        off = int(rng.integers(0, Lt - ql - gap))
+        seg = t[b, off:off + ql + gap]
+        read = np.concatenate([seg[:ql // 2], seg[ql // 2 + gap:]])[:ql]
+        noisy = rng.random(ql) < 0.03
+        q[b, :ql] = np.where(noisy, rng.integers(0, 5, ql), read)
+    regions = np.zeros((B, R_MAX, 2), np.int32)
+    for r in range(R):
+        s = rng.integers(-8, Lt - 2, B)
+        e = np.where(rng.random(B) < 0.15, s, s + rng.integers(1, 12, B))
+        regions[:, r] = np.stack([s, np.minimum(e, Lt)], axis=1)
+    qu = rng.integers(2, 42, (B, Lq)).astype(np.uint8)
+    t_lens = rng.integers(Lt - 20, Lt + 1, B).astype(np.int32)
+    return q, qu, q_lens, t, t_lens, regions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [0, 1, 2, 4])
+def test_kernel_matches_plain_on_card(R):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    kp = READ_TO_HAP_PARAMS.to(dev)
+    args = [torch.from_numpy(a).to(dev)
+            for a in _pairs(400 + R, 192, 96, 200, R)]
+    plain_i, plain_f = ec._pack(evidence_dp_torch(*args, kp, r_max=R), R)
+    assert int((plain_i[:, 3] >= 40).sum()) > 0  # long deletions won
+    before = dict(ec.LAUNCHES)
+    if R == 0:
+        got_i = ec.span_pairs_submit(args[0], args[2], args[3], args[4], kp)
+        assert torch.equal(got_i, plain_i)
+    else:
+        got_i, got_f = ec.evidence_pairs_submit(*args, R, kp)
+        assert torch.equal(got_i, plain_i) and torch.equal(got_f, plain_f)
+    key = "span" if R == 0 else "evidence"
+    assert ec.LAUNCHES[key] == before[key] + 1

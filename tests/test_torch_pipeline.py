@@ -1,0 +1,125 @@
+"""The port's slice as a whole: `python -m lancet2_tpu_torch pipeline`.
+
+On a seeded 6 kb tumor/normal fixture (somatic SNV at 3000, germline 5 bp
+deletion at 1200, seed 9), the port's pipeline
+with --device cpu must write VCF record lines byte-identical to the JAX
+package's batch executor on CPU, call both planted variants, and never load
+jax. tests/conftest.py imports jax, so the port runs in a subprocess.
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from lancet2_tpu.cli.main import main as jax_cli_main
+from lancet2_tpu.utils.simulate import Variant, make_tumor_normal_fixture, random_reference
+from lancet2_tpu_torch.cli.main import build_parser
+from lancet2_tpu_torch.core.batch_pipeline import check_device
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_RUN_PORT = """
+import json, runpy, sys
+sys.argv = ["lancet2_tpu_torch"] + json.loads(sys.argv[1])
+try:
+    runpy.run_module("lancet2_tpu_torch", run_name="__main__")
+except SystemExit as exc:
+    code = exc.code
+print(json.dumps({"exit": code, "jax_loaded": "jax" in sys.modules}))
+"""
+
+
+@pytest.fixture(scope="module")
+def fixture(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_slice")
+    ref = random_reference(6000, seed=9)
+    alt = "C" if ref[3000] != "C" else "G"
+    fx = make_tumor_normal_fixture(
+        str(tmp), ref_len=6000,
+        somatic=[Variant(pos0=3000, ref=ref[3000], alt=alt, vaf=0.4)],
+        germline=[Variant(pos0=1200, ref=ref[1200:1206], alt=ref[1200],
+                          vaf=0.5)],
+        normal_cov=35, tumor_cov=50, seed=9)
+    return tmp, fx
+
+
+def _records(path) -> list[str]:
+    with gzip.open(path, "rt") as fh:
+        return [l for l in fh.read().splitlines() if l and not l.startswith("#")]
+
+
+def test_port_pipeline_matches_jax_batch_executor(fixture):
+    tmp, fx = fixture
+    common = ["pipeline", "-n", fx["normal"], "-t", fx["tumor"],
+              "-r", fx["fasta"], "-T", "2"]
+    jax_vcf = str(tmp / "jax.vcf.gz")
+    assert jax_cli_main(common + ["-o", jax_vcf, "--executor", "batch"]) == 0
+
+    port_vcf = str(tmp / "port.vcf.gz")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", _RUN_PORT,
+         json.dumps(common + ["-o", port_vcf, "--device", "cpu"])],
+        capture_output=True, text=True, env=env, cwd=str(tmp), timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    status = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert status == {"exit": 0, "jax_loaded": False}, proc.stderr[-3000:]
+
+    want, got = _records(jax_vcf), _records(port_vcf)
+    assert want, "fixture must produce records"
+    assert got == want
+    called = {(int(r.split("\t")[1]), r.split("\t")[3], r.split("\t")[4])
+              for r in got}
+    for v in fx["somatic"] + fx["germline"]:
+        assert (v.pos0 + 1, v.ref, v.alt) in called, v
+
+
+def test_cli_rejects_unsupported_options(fixture):
+    from lancet2_tpu_torch.cli.main import run_pipeline
+
+    tmp, fx = fixture
+    base = ["pipeline", "-n", fx["normal"], "-r", fx["fasta"],
+            "-o", str(tmp / "x.vcf.gz"), "--device", "cpu"]
+    for extra, word in ((["--executor", "threads"], "--executor"),
+                        (["--aligner-backend", "numpy"], "--aligner-backend"),
+                        (["--prep-mode", "threads"], "--prep-mode"),
+                        (["--graph-backend", "device"], "--graph-backend"),
+                        (["--out-graphs-tgz", "g.tgz"], "--out-graphs-tgz")):
+        args = build_parser().parse_args(base + extra)
+        with pytest.raises(SystemExit, match=word):
+            run_pipeline(args, "test")
+    with pytest.raises(SystemExit):  # argparse: tpu is not a port device
+        build_parser().parse_args(base + ["--device", "tpu"])
+    args = build_parser().parse_args(base[:-2])
+    assert (args.device, args.executor, args.aligner_backend) == (
+        "cuda", "batch", "evidence")
+
+
+def test_cuda_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        check_device(torch.device("cuda"))
+    assert check_device(torch.device("cpu")) == torch.device("cpu")
+
+
+def test_port_modules_import_without_jax():
+    code = (
+        "import sys\n"
+        "import lancet2_tpu_torch.cli.main, lancet2_tpu_torch.core.prep_worker\n"
+        "assert 'torch' not in sys.modules, 'cli/prep import torch eagerly'\n"
+        "import lancet2_tpu_torch.core.batch_pipeline\n"
+        "import lancet2_tpu_torch.ops.evidence_fused\n"
+        "import lancet2_tpu_torch.utils.simulate\n"
+        "assert 'jax' not in sys.modules\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
