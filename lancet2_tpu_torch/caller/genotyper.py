@@ -1,71 +1,494 @@
-"""The genotyper's device half on one torch device.
+"""Read -> haplotype allele assignment: the genotyper of the port.
 
-`TorchGenotyper` subclasses `lancet2_tpu.caller.genotyper.Genotyper` and
-overrides the indexed two-pass protocol (`begin_evidence_indexed` /
-`finish_evidence_indexed`, reference `:786-1067`):
+The host half is the JAX package's `caller/genotyper.py` as it is, with its
+JAX-only branches deleted: pair-index building (`build_pair_indices`),
+evidence assembly (`assemble_evidence_packed`) and the numpy CIGAR backend
+(`genotype` with backend 'numpy'). The JAX package's tuple-form evidence
+path, its XLA and Pallas engines, its mesh counters and its jitted aligner
+are not part of this module.
+
+`TorchGenotyper` is the device half on one torch device, the indexed
+two-pass protocol (`begin_evidence_indexed` / `finish_evidence_indexed`):
 
   pass 1  the span kernel (K1) over every (read x hap x region-chunk) pair;
   gate    score >= min_score_frac * read length, t_end > t_start, and the
           span overlaps an active region;
   crop    each survivor's target band is cut to its pass-1 span; regions
-          shift WITHOUT clamping, so starts can be negative (ref `:964-975`);
+          shift WITHOUT clamping, so starts can be negative;
   pass 2  the evidence kernel (K2) over the survivors, one launch class per
           highest active region slot R in {1, 2, 4}.
 
 Launches are asynchronous: `begin` returns with pass 1 in flight and
 `finish` is where the host waits. The kernel is exact at every deletion
-distance, so there is no taint and no host rerun. The pair builders and
-`assemble_evidence_packed` are inherited unchanged.
+distance, so there is no taint and no host rerun.
+
+torch and the device ops are imported inside `TorchGenotyper`, as the JAX
+package imports its engines, and the pair layout comes from the torch-free
+ops/evidence_layout.py: the CLI and phase A (the prep coordinator and its
+fork workers) load no torch.
+
+Divergence from the reference caller (kept from the JAX package): minimap2
+returns "no hit" for unalignable reads; the DP always produces a best-effort
+alignment, so a minimum score gate (score >= read_len/4 by default) stands in
+for mapability filtering.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from lancet2_tpu.caller.genotyper import (
-    _PAIR_CHUNK,
-    _TARGET_BUCKETS,
-    Genotyper,
-    _bucket,
+from lancet2_tpu_torch.base.dna import encode
+from lancet2_tpu_torch.caller.scoring import (
+    ReadAlleleAssignment,
+    compute_edit_distance_cigar,
+    score_read_at_variant,
 )
-from lancet2_tpu_torch.ops.evidence_cuda import (
-    evidence_pairs_finalize,
-    span_pairs_finalize,
-)
-from lancet2_tpu_torch.ops.evidence_dp import R_MAX, REGION_FILL, SPAN_KEYS
-from lancet2_tpu_torch.ops.evidence_fused import (
-    DevicePools,
-    evidence_indexed_submit,
-    span_indexed_submit,
-)
-from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
+from lancet2_tpu_torch.caller.support import STRAND_FWD, STRAND_REV, ReadEvidence, VariantSupport
+from lancet2_tpu_torch.caller.variant import RawVariant
+from lancet2_tpu_torch.cbdg.read import Read
+from lancet2_tpu_torch.ops.affine_dp import READ_TO_HAP, align_batch_numpy, traceback_batch
+from lancet2_tpu_torch.ops.evidence_layout import R_MAX, REGION_FILL, SPAN_KEYS
+
+REF_HAP_IDX = 0
+_PAIR_CHUNK = 512
+
+_TARGET_BUCKETS = (64, 128, 256, 384, 512, 768, 1024, 1280, 1536, 2048, 4096, 8192)
+_QUERY_BUCKETS = (160, 320, 640, 1280)
 
 PASS2_R = (1, 2, 4)  # evidence launch classes: highest active slot + 1
 
 
+def _bucket(n: int, buckets=(64, 128, 256, 512, 1024, 2048, 4096, 8192)) -> int:
+    """Round a length up to a fixed bucket (the padded shapes of a pair
+    chunk)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return n
+
+
+def _pad(seqs: list[np.ndarray], width: int | None = None):
+    max_len = max((len(s) for s in seqs), default=1)
+    width = width if width is not None else max_len
+    out = np.full((len(seqs), width), 5, dtype=np.uint8)
+    lens = np.zeros(len(seqs), dtype=np.int64)
+    for i, s in enumerate(seqs):
+        out[i, : len(s)] = s
+        lens[i] = len(s)
+    return out, lens
+
+
+class Genotyper:
+    """backend: 'numpy' (CIGAR traceback per pair, `genotype`) or 'evidence'
+    (the indexed protocol: `build_pair_indices` on the host, the DP on a
+    torch device through `TorchGenotyper`, `assemble_evidence_packed`)."""
+
+    def __init__(self, backend: str = "numpy", min_score_frac: float = 0.25):
+        self.backend = backend
+        self.min_score_frac = min_score_frac
+
+    def build_pair_indices(self, hap_lens, reads, variants,
+                           anchor_pos1: int, band_margin: int,
+                           max_regions: int):
+        """Evidence pairs of ONE component as indices: no per-pair sequence
+        copies — pairs are (read_ix, hap_local, band_start, t_len, shifted
+        regions), fully vectorized. Pair order is read-major then (hap,
+        chunk), as in the JAX package's expanded builder (bit-identity
+        depends on it: best-per-(read, variant) tie-breaks iterate pairs in
+        order)."""
+        if band_margin is None:
+            band_margin = 1 << 30  # no banding: every pair gets the full hap
+        n_haps = len(hap_lens)
+        n_reads = len(reads)
+        # per-hap region chunks of at most max_regions carried variants
+        hap_chunks: list[list[tuple[np.ndarray, list]]] = []
+        for h in range(n_haps):
+            carried = []
+            for vi, variant in enumerate(variants):
+                bounds = self._extract_hap_bounds(variant, h)
+                if bounds is not None:
+                    carried.append((vi, bounds[0], bounds[1], bounds[2]))
+            chunks = []
+            for off in range(0, max(len(carried), 1), max_regions):
+                group = carried[off : off + max_regions]
+                regions = np.zeros((R_MAX, 2), np.int32)
+                vis = []
+                for r, (vi, vs, vlen, allele) in enumerate(group):
+                    regions[r] = (vs, vs + vlen)
+                    vis.append((vi, allele))
+                chunks.append((regions, vis))
+            hap_chunks.append(chunks)
+
+        cols = [(h, ci) for h in range(n_haps)
+                for ci in range(len(hap_chunks[h]))]
+        C = len(cols)
+        if n_reads == 0 or C == 0:
+            z = np.zeros(0, np.int32)
+            return dict(read_ix=z, hap_local=z, band_start=z, tlens=z,
+                        regions=np.zeros((0, R_MAX, 2), np.int32),
+                        meta_vis=z, vis_table=[])
+
+        ro = np.fromiter(
+            (rd.start0 + 1 - anchor_pos1 for rd in reads), np.int64, n_reads
+        )
+        rlen = np.fromiter((rd.length for rd in reads), np.int64, n_reads)
+        bandw = rlen + 2 * band_margin
+        hl = np.asarray(hap_lens, np.int64)
+
+        # per (read, hap) band start + target length [n_reads, n_haps]
+        banded = bandw[:, None] < hl[None, :]
+        bs = np.clip(
+            ro[:, None] - band_margin, 0,
+            np.maximum(hl[None, :] - bandw[:, None], 0),
+        )
+        bs = np.where(banded, bs, 0).astype(np.int64)
+        tl = np.where(banded, bandw[:, None], hl[None, :]).astype(np.int64)
+
+        col_h = np.fromiter((h for h, _ci in cols), np.int64, C)
+        read_ix = np.repeat(np.arange(n_reads, dtype=np.int32), C)
+        hap_local = np.tile(col_h.astype(np.int32), n_reads)
+        band_start = bs[:, col_h].ravel().astype(np.int32)
+        tlens = tl[:, col_h].ravel().astype(np.int32)
+
+        # shifted regions per (col, read) -> (read-major, col) pair order
+        vis_table: list = []
+        meta_vis_col = np.empty(C, np.int32)
+        regs_by_col = np.empty((C, n_reads, R_MAX, 2), np.int32)
+        for j, (h, ci) in enumerate(cols):
+            regions, vis = hap_chunks[h][ci]
+            meta_vis_col[j] = len(vis_table)
+            vis_table.append(vis)
+            shifted = np.clip(
+                regions[None, :, :] - bs[:, h, None, None],
+                0, tl[:, h, None, None],
+            ).astype(np.int32)
+            inact = regions[:, 1] <= regions[:, 0]
+            shifted[:, inact, :] = 0
+            regs_by_col[j] = np.where(
+                banded[:, h, None, None], shifted, regions[None, :, :]
+            )
+        regions_all = regs_by_col.transpose(1, 0, 2, 3).reshape(
+            n_reads * C, R_MAX, 2
+        )
+        meta_vis = np.tile(meta_vis_col, n_reads)
+
+        # EXACT pair pruning: a pair whose every region slot band-clipped
+        # to empty can never contribute evidence (assembly reads a pair
+        # only through active-slot overlap), so it never needs to ship or
+        # align. Kept regardless: each read's FIRST REF-hap pair — the
+        # per-read NM-baseline source (assemble_evidence* takes the first
+        # REF pair in order). Identical results, ~35% fewer pairs on the
+        # chr-scale bench (reference aligns every read to every haplotype
+        # — caller/genotyper.cpp:376-411 — but only because minimap2
+        # can't know which alignments feed evidence; the band geometry
+        # here proves it upfront).
+        keep = (regions_all[:, :, 1] > regions_all[:, :, 0]).any(axis=1)
+        keep = keep.reshape(n_reads, C)
+        keep[:, 0] = True  # (h=0, ci=0): the REF baseline pair
+        keep = keep.ravel()
+        return dict(read_ix=read_ix[keep], hap_local=hap_local[keep],
+                    band_start=band_start[keep], tlens=tlens[keep],
+                    regions=regions_all[keep], meta_vis=meta_vis[keep],
+                    vis_table=vis_table)
+
+    def assemble_evidence_packed(self, reads, variants, comp, outs):
+        """Phase 3 over a PackedComponent (core/prep_worker.py): the gate /
+        overlap / field math runs vectorized over all pairs; Python touches
+        only the surviving candidates (measured ~16% of pairs). Result- and
+        ORDER-identical to assemble_evidence on the tuple form: candidates
+        iterate in (pair, slot) order — the same nesting as the scalar
+        loops — so best-per-(read,variant) tie-breaks match exactly, and
+        evidence rows append per read in read order."""
+        n = comp.pair_stop - comp.pair_start
+        result: dict[int, dict[str, VariantSupport]] = {}
+        if n == 0:
+            return result
+        meta_r, meta_h, meta_vis = comp.meta_r, comp.meta_h, comp.meta_vis
+        regions = comp.regions
+        score = np.asarray(outs["score"])
+        t_start = np.asarray(outs["t_start"])
+        t_end = np.asarray(outs["t_end"])
+        nm = np.asarray(outs["nm"])
+
+        n_reads = len(reads)
+        if hasattr(reads, "length"):  # ReadCols (columnar payload)
+            read_len = reads.length
+        else:
+            read_len = np.fromiter(
+                (r.length for r in reads), np.int64, n_reads
+            )
+        min_score = (self.min_score_frac * read_len).astype(np.int64)
+        pm = (score >= min_score[meta_r]) & (t_end > t_start)
+
+        # per-read NM baseline from the first REF-haplotype pair
+        baseline = read_len.copy()
+        sel = np.flatnonzero(meta_h == REF_HAP_IDX)
+        if sel.size:
+            ur, ui = np.unique(meta_r[sel], return_index=True)
+            ridx = sel[ui]
+            ok = pm[ridx]
+            baseline[ur[ok]] = nm[ridx[ok]]
+
+        active = regions[:, :, 1] > regions[:, :, 0]
+        ov = ((regions[:, :, 1] > t_start[:, None])
+              & (regions[:, :, 0] < t_end[:, None]) & active)
+        pi, si = np.nonzero(ov & pm[:, None])
+        if pi.size == 0:
+            return result
+
+        aligned = np.asarray(outs["aligned"])[pi, si]
+        matches = np.asarray(outs["matches"])[pi, si]
+        identity = np.where(aligned > 0, matches / np.maximum(aligned, 1), 0.0)
+        raw = np.asarray(outs["raw"])[pi, si]
+        pbq = np.asarray(outs["pbq"])[pi, si]
+        min_bq = np.asarray(outs["min_bq"])[pi, si]
+        qv = np.maximum(np.asarray(outs["qv"])[pi, si], 0)
+        # int(float(score) - raw): trunc-toward-zero, matching the scalar int()
+        gscore = np.trunc(score[pi].astype(np.float64) - raw).astype(np.int64)
+        combined = gscore.astype(np.float64) + pbq * identity
+        rl = read_len[meta_r[pi]]
+        rel = np.where(rl > 0, qv / np.maximum(rl, 1), 0.5)
+        folded = np.minimum(rel, 1.0 - rel)
+        bq = np.where(min_bq == 255, 0, min_bq)
+        own_nm = nm[pi]
+        hap_of = meta_h[pi]
+        read_of = meta_r[pi]
+
+        # best-per-(read, variant): candidates already in (pair, slot)
+        # order == the scalar loops' nesting; dict updates keep insertion
+        # position, preserving the per-read variant iteration order
+        winners: dict[int, dict[int, tuple]] = {}
+        vis_table = comp.vis_table
+        for c in range(pi.size):
+            vt = vis_table[meta_vis[pi[c]]]
+            s = si[c]
+            if s >= len(vt):
+                continue  # inactive slot (regions row padded) — not a vis
+            vi, allele = vt[s]
+            per_read = winners.setdefault(int(read_of[c]), {})
+            prev = per_read.get(vi)
+            if prev is None or combined[c] > prev[0]:
+                per_read[vi] = (combined[c], c, allele)
+
+        columnar = hasattr(reads, "flags")
+        for r in sorted(winners):
+            if columnar:
+                fl = int(reads.flags[r])
+                strand = STRAND_REV if fl & 4 else STRAND_FWD
+                sample_name = reads.sample_names[reads.sample_idx[r]]
+                insert_size = int(reads.insert_size[r])
+                start0 = int(reads.start0[r])
+                qname_hash = int(reads.qname_hash[r])
+                mapq = int(reads.mapq[r])
+                is_clip, is_pp = bool(fl & 1), bool(fl & 2)
+            else:
+                read = reads[r]
+                strand = STRAND_REV if read.is_reverse else STRAND_FWD
+                sample_name = read.sample_name
+                insert_size = read.insert_size
+                start0 = read.start0
+                qname_hash = read.qname_hash
+                mapq = read.mapq
+                is_clip, is_pp = read.is_soft_clipped, read.is_proper_pair
+            for vi, (comb, c, allele) in winners[r].items():
+                supports = result.setdefault(vi, {})
+                support = supports.setdefault(sample_name, VariantSupport())
+                support.add_evidence(
+                    ReadEvidence(
+                        insert_size=insert_size,
+                        alignment_start=start0,
+                        aln_score=float(comb),
+                        folded_read_pos=float(folded[c]),
+                        rname_hash=qname_hash & 0xFFFFFFFF,
+                        ref_nm=int(baseline[r]),
+                        own_hap_nm=int(own_nm[c]),
+                        assigned_haplotype_id=int(hap_of[c]),
+                        allele=int(allele),
+                        strand=strand,
+                        base_qual=int(bq[c]),
+                        map_qual=mapq,
+                        is_soft_clipped=is_clip,
+                        is_proper_pair=is_pp,
+                    )
+                )
+        return result
+
+    def _align_all(self, hap_codes: list[np.ndarray], reads: list[Read],
+                   variants: list[RawVariant] | None = None):
+        """Batched alignment of every (read, hap) pair; returns nested dict
+        alns[read_idx][hap_idx] = {score, t_start, t_end, cigar, hap_idx}
+        for pairs that need CIGARs (None entries are gated/non-candidates)."""
+        n_reads, n_haps = len(reads), len(hap_codes)
+        pair_q = []
+        pair_t = []
+        for read in reads:
+            for h in range(n_haps):
+                pair_q.append(read.codes)
+                pair_t.append(hap_codes[h])
+
+        # min-score gate applied after alignment; all pairs get CIGARs
+        pair_of = {i: i for i in range(len(pair_q))}
+        results: list[dict] = []
+        for lo in range(0, len(pair_q), _PAIR_CHUNK):
+            hi = min(lo + _PAIR_CHUNK, len(pair_q))
+            qs, qlens = _pad(pair_q[lo:hi])
+            ts, tlens = _pad(pair_t[lo:hi])
+            out = align_batch_numpy(qs, qlens, ts, tlens, READ_TO_HAP)
+            cigars = traceback_batch(
+                np.asarray(out["dirs"]), qlens, np.asarray(out["t_end"], dtype=np.int64), READ_TO_HAP
+            )
+            for b in range(hi - lo):
+                cigar = cigars[b]
+                t_span = sum(l for op, l in cigar if op in (0, 2))
+                t_end = int(out["t_end"][b])
+                results.append(
+                    {
+                        "score": int(out["score"][b]),
+                        "t_end": t_end,
+                        "t_start": t_end - t_span,
+                        "cigar": cigar,
+                    }
+                )
+
+        alns = []
+        for r in range(n_reads):
+            per_hap = []
+            for h in range(n_haps):
+                idx = r * n_haps + h
+                res = dict(results[pair_of[idx]])
+                res["hap_idx"] = h
+                # apply the min-score mapability gate here so downstream
+                # sees None for unalignable pairs
+                min_score = int(self.min_score_frac * reads[r].length)
+                if res["score"] < min_score:
+                    per_hap.append(None)
+                else:
+                    per_hap.append(res)
+            alns.append(per_hap)
+        return alns
+
+    @staticmethod
+    def _extract_hap_bounds(variant: RawVariant, hap_idx: int):
+        """(var_start, var_len, allele_idx) of this variant on haplotype hap_idx,
+        or None when the haplotype doesn't carry it."""
+        if hap_idx == REF_HAP_IDX:
+            return variant.local_ref_start0, len(variant.ref_allele), 0
+        for alt_pos, alt in enumerate(variant.alts):
+            start = alt.local_hap_starts.get(hap_idx)
+            if start is not None:
+                return start, len(alt.sequence), alt_pos + 1
+        return None
+
+    def genotype(
+        self, hap_seqs: list[str], reads: list[Read], variants: list[RawVariant]
+    ) -> dict[int, dict[str, VariantSupport]]:
+        """Returns {variant_index: {sample_name: VariantSupport}}."""
+        if not variants or not reads:
+            return {}
+        if self.backend != "numpy":
+            raise NotImplementedError(
+                f"backend {self.backend!r}: the port genotypes per window "
+                "with the numpy backend only; the evidence backend runs "
+                "through the batch executor (TorchGenotyper)")
+        hap_codes = [encode(h) for h in hap_seqs]
+        alns = self._align_all(hap_codes, reads, variants)
+
+        result: dict[int, dict[str, VariantSupport]] = {}
+        for read, per_hap in zip(reads, alns):
+            valid = [a for a in per_hap
+                     if a is not None and a["t_end"] > a["t_start"]]
+            if not valid:
+                continue
+
+            # O(1)-per-read NM baseline against the REF haplotype
+            ref_aln = per_hap[REF_HAP_IDX]
+            if ref_aln is not None and ref_aln in valid:
+                ref_slice = hap_codes[REF_HAP_IDX][ref_aln["t_start"] : ref_aln["t_end"]]
+                baseline_ref_nm = compute_edit_distance_cigar(
+                    ref_aln["cigar"], read.codes, ref_slice
+                )
+            else:
+                baseline_ref_nm = read.length
+
+            assignments: dict[int, ReadAlleleAssignment] = {}
+            for aln in valid:
+                hap_idx = aln["hap_idx"]
+                for vi, variant in enumerate(variants):
+                    bounds = self._extract_hap_bounds(variant, hap_idx)
+                    if bounds is None:
+                        continue
+                    var_start, var_len, allele_idx = bounds
+                    if not (var_start + var_len > aln["t_start"] and var_start < aln["t_end"]):
+                        continue
+                    scored = score_read_at_variant(
+                        aln, hap_codes[hap_idx], read.codes, read.qual,
+                        read.length, var_start, var_len, allele_idx,
+                    )
+                    scored.ref_nm = baseline_ref_nm
+                    prev = assignments.get(vi)
+                    if prev is None or scored.combined_score > prev.combined_score:
+                        assignments[vi] = scored
+
+            strand = STRAND_REV if read.is_reverse else STRAND_FWD
+            for vi, scored in assignments.items():
+                supports = result.setdefault(vi, {})
+                support = supports.setdefault(read.sample_name, VariantSupport())
+                support.add_evidence(
+                    ReadEvidence(
+                        insert_size=read.insert_size,
+                        alignment_start=read.start0,
+                        aln_score=scored.combined_score,
+                        folded_read_pos=scored.folded_read_pos,
+                        rname_hash=read.qname_hash & 0xFFFFFFFF,
+                        ref_nm=scored.ref_nm,
+                        own_hap_nm=scored.own_hap_nm,
+                        assigned_haplotype_id=scored.assigned_haplotype_id,
+                        allele=scored.allele,
+                        strand=strand,
+                        base_qual=scored.base_qual_at_var,
+                        map_qual=read.mapq,
+                        is_soft_clipped=read.is_soft_clipped,
+                        is_proper_pair=read.is_proper_pair,
+                    )
+                )
+        return result
+
+
 class TorchGenotyper(Genotyper):
-    def __init__(self, device: torch.device, min_score_frac: float = 0.25):
+    def __init__(self, device, min_score_frac: float = 0.25):
+        import torch
+
+        from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
+
         super().__init__(backend="evidence", min_score_frac=min_score_frac)
         self.device = torch.device(device)
         self.kp = READ_TO_HAP_PARAMS.to(self.device)
         # pairs seen / pairs sent to pass 2, summed over this genotyper's life
         self.pass2_stats = {"total": 0, "pass2": 0}
 
-    def run_evidence_pairs(self, *args, **kwargs):
-        raise NotImplementedError("the port runs the indexed protocol only "
-                                  "(run_evidence_indexed)")
-
-    run_evidence_arrays = run_evidence_pairs
+    def run_evidence_indexed(self, pools: dict, pairs: dict,
+                             pair_chunk: int | None = None):
+        """pools: reads_q/reads_qu [NR, Lq] u8, read_lens [NR] i32,
+                  haps [NH, LH] u8
+        pairs: read_ix/hap_ix/band_start/tlens [n] i32,
+               regions [n, R_MAX, 2] i32 (band coordinates)."""
+        return self.finish_evidence_indexed(
+            self.begin_evidence_indexed(pools, pairs, pair_chunk)
+        )
 
     def begin_evidence_indexed(self, pools: dict, pairs: dict,
                                pair_chunk: int | None = None):
         """Upload the pools and launch pass 1 over every pair; returns the
         state `finish_evidence_indexed` completes."""
+        from lancet2_tpu_torch.ops.evidence_fused import (
+            DevicePools,
+            span_indexed_submit,
+        )
+
         chunk = pair_chunk if pair_chunk is not None else _PAIR_CHUNK
         if self.device.type == "cpu":
             # the plain version holds tens of [chunk, Lt] planes per row:
-            # cap the chunk as the reference caps its host engine (:623-626)
+            # cap the chunk as the JAX package caps its host engine
             chunk = min(chunk, 2048)
         read_ix = np.asarray(pairs["read_ix"], np.int64)
         hap_ix = np.asarray(pairs["hap_ix"], np.int64)
@@ -88,6 +511,12 @@ class TorchGenotyper(Genotyper):
                     regions=np.asarray(pairs["regions"], np.int32))
 
     def finish_evidence_indexed(self, st: dict) -> dict:
+        from lancet2_tpu_torch.ops.evidence_cuda import (
+            evidence_pairs_finalize,
+            span_pairs_finalize,
+        )
+        from lancet2_tpu_torch.ops.evidence_fused import evidence_indexed_submit
+
         dev, n, chunk = st["dev"], st["n"], st["chunk"]
         read_ix, hap_ix = st["read_ix"], st["hap_ix"]
         band_start, regions = st["band_start"], st["regions"]

@@ -1,34 +1,33 @@
 """CLI: `python -m lancet2_tpu_torch pipeline ...` on a torch device.
 
-Reuses the JAX package's argument parser (`lancet2_tpu.cli.main.
-build_parser`) and the host half of its `run_pipeline` (reference
-`:164-463`), without the jax configuration block (`:186-214`). The port runs
-the batch executor only; `--device` takes {cpu, cuda} (default cuda). An
-option the port does not support yet raises a clear error instead of being
-ignored.
+The JAX package's CLI (`lancet2_tpu/cli/main.py`) with its flag surface,
+without the jax configuration block. The port runs the batch executor only;
+`--device` takes {cpu, cuda} (default cuda). An option the port does not
+support yet raises a clear error instead of being ignored. `index` and
+`cram` run through the port's own hts modules.
 
-This module imports neither torch nor jax at import time: the prep
-coordinator is spawned, and a spawned process re-imports the main module.
+This module does not import torch at import time: the prep coordinator is
+spawned, and a spawned process re-imports the main module.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import resource
 import sys
 import time
 
-from lancet2_tpu.cli.main import build_parser as _build_reference_parser
-from lancet2_tpu.cli.vcf_header import build_vcf_header
-from lancet2_tpu.cbdg.graph import GraphParams
-from lancet2_tpu.core.active_region import has_md_tag
-from lancet2_tpu.core.read_collector import CollectorParams
-from lancet2_tpu.core.sample_info import make_sample_list
-from lancet2_tpu.core.variant_builder import BuilderParams
-from lancet2_tpu.core.window_builder import WindowBuilder, WindowParams
-from lancet2_tpu.hts.bgzf import BgzfWriter
-from lancet2_tpu.hts.fasta import Reference
-from lancet2_tpu.utils.logging import configure, get_logger
+from lancet2_tpu_torch.cbdg.graph import GraphParams
+from lancet2_tpu_torch.cli.vcf_header import build_vcf_header
+from lancet2_tpu_torch.core.active_region import has_md_tag
+from lancet2_tpu_torch.core.read_collector import CollectorParams
+from lancet2_tpu_torch.core.sample_info import make_sample_list
+from lancet2_tpu_torch.core.variant_builder import BuilderParams
+from lancet2_tpu_torch.core.window_builder import WindowBuilder, WindowParams
+from lancet2_tpu_torch.hts.bgzf import BgzfWriter
+from lancet2_tpu_torch.hts.fasta import Reference
+from lancet2_tpu_torch.utils.logging import configure, get_logger
 
 LOG = get_logger("cli")
 
@@ -36,21 +35,136 @@ LOG = get_logger("cli")
 PAIR_CHUNK = 8192
 
 
-def build_parser():
-    parser = _build_reference_parser()
-    parser.prog = "lancet2-tpu-torch"
-    parser.description = ("PyTorch/CUDA port of the microassembly "
-                          "somatic/germline variant caller")
-    pipeline = next(a for a in parser._subparsers._group_actions
-                    if a.dest == "command").choices["pipeline"]
-    pipeline.set_defaults(executor="batch", aligner_backend="evidence",
-                          device="cuda")
-    for action in pipeline._actions:
-        if action.dest == "device":
-            action.choices = ["cpu", "cuda"]
-            action.help = ("where the evidence DP runs: cuda launches the "
-                           "hand-written kernels on the current CUDA device; "
-                           "cpu runs their plain PyTorch versions")
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="lancet2-tpu-torch",
+        description="PyTorch/CUDA port of the microassembly "
+                    "somatic/germline variant caller",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    ix = sub.add_parser("index", help="build a .bai/.csi index for a BAM, or "
+                                      "a .crai for a CRAM (htslib-compatible; "
+                                      "see hts/bai.py, hts/csi.py, hts/crai.py)")
+    ix.add_argument("bam", help="coordinate-sorted BAM or CRAM file")
+    ix.add_argument("-o", "--output", default=None, help="output index path "
+                                                         "(default: <bam>.bai/.csi)")
+    ix.add_argument("--csi", action="store_true",
+                    help="CSI binning (contigs >= 2^29 bp) instead of BAI")
+    ix.add_argument("--min-shift", type=int, default=14,
+                    help="CSI minimum interval shift (default 14)")
+    ix.add_argument("--depth", type=int, default=5,
+                    help="CSI binning depth (default 5; 6 covers 4 Gbp contigs)")
+
+    cv = sub.add_parser("cram", help="convert BAM <-> CRAM 3.0 (native codec; "
+                                     "see hts/cram.py)")
+    cv.add_argument("input", help="input BAM or CRAM")
+    cv.add_argument("-r", "--reference", required=True,
+                    help="reference FASTA (CRAM is reference-based)")
+    cv.add_argument("-o", "--output", required=True, help="output .cram or .bam")
+    cv.add_argument("--codec", choices=["gzip", "rans4x8"], default="gzip",
+                    help="CRAM block compression (default gzip)")
+
+    pl = sub.add_parser("pipeline", help="run the variant calling pipeline")
+
+    # sample inputs
+    pl.add_argument("-n", "--normal", action="append", default=[], help="normal/control BAM")
+    pl.add_argument("-t", "--tumor", action="append", default=[], help="tumor/case BAM")
+    pl.add_argument(
+        "-s", "--sample", action="append", default=[],
+        help="unified sample spec '<path>:<role>' (role: control|case)",
+    )
+    pl.add_argument("-r", "--reference", required=True, help="indexed reference FASTA")
+    pl.add_argument("-o", "--out-vcfgz", required=True, help="output bgzip VCF path")
+
+    # regions
+    pl.add_argument("-R", "--region", action="append", default=[], help="region spec(s)")
+    pl.add_argument("-b", "--bed-file", default=None, help="BED file of regions")
+    pl.add_argument("-P", "--padding", type=int, default=500)
+    pl.add_argument("-p", "--pct-overlap", type=int, default=20, choices=range(10, 91),
+                    metavar="[10-90]")
+    pl.add_argument("-w", "--window-size", type=int, default=1000)
+
+    # execution
+    pl.add_argument("-T", "--num-threads", type=int, default=2)
+    pl.add_argument("--host-index", type=int, default=0,
+                    help="this host's index for multi-host window sharding")
+    pl.add_argument("--num-hosts", type=int, default=1,
+                    help="total hosts; the window manifest is block-sharded "
+                         "and each host writes its own VCF shard (merge with "
+                         "lancet2_tpu_torch.parallel.manifest."
+                         "merge_vcf_shards)")
+    pl.add_argument("--aligner-backend", choices=["numpy", "jax", "evidence"],
+                    default="evidence",
+                    help="evidence (the only one ported): traceback-free "
+                         "device formulation, what --executor batch uses")
+    pl.add_argument("--executor", choices=["threads", "batch"], default="batch",
+                    help="batch (the only one ported) = two-phase executor "
+                         "with fused cross-window evidence-DP dispatches")
+    pl.add_argument("--prep-mode", choices=["auto", "processes", "threads"],
+                    default="auto",
+                    help="batch-executor phase-A workers: fork processes "
+                         "(GIL-free scaling, default on posix) or threads "
+                         "(byte-identical results either way)")
+    pl.add_argument("--device", choices=["cpu", "cuda"], default="cuda",
+                    help="where the evidence DP runs: cuda launches the "
+                         "hand-written kernels on the current CUDA device; "
+                         "cpu runs their plain PyTorch versions")
+
+    # graph params
+    pl.add_argument("--graph-backend",
+                    choices=["auto", "native", "numpy", "device"],
+                    default="auto",
+                    help="k-mer graph construction engine (bit-exact twins; "
+                         "cbdg/graph.py): native C++ single-pass or numpy "
+                         "vectorized; auto = native with numpy fallback "
+                         "(device is not ported)")
+    pl.add_argument("-k", "--min-kmer", type=int, default=13)
+    pl.add_argument("-K", "--max-kmer", type=int, default=127)
+    pl.add_argument("--kmer-step", type=int, default=6)
+    pl.add_argument("--min-anchor-cov", type=int, default=5)
+    pl.add_argument("--min-node-cov", type=int, default=2)
+    pl.add_argument("--max-sample-cov", type=float, default=1000.0)
+
+    # toggles
+    pl.add_argument("--verbose", action="store_true")
+    pl.add_argument("--extract-pairs", action="store_true")
+    pl.add_argument("--read-filter", default=None, metavar="EXPR",
+                    help="samtools filter expression applied to collected "
+                         "reads, e.g. 'mapq >= 30 && !flag.dup && [NM] <= 4' "
+                         "(hts/filter_expr.py; reference: htslib hts_filter)")
+    pl.add_argument("--stream-bam", action="store_true",
+                    help="BAI-indexed streaming BAM access (bounded memory "
+                         "for multi-GB inputs; builds the .bai when missing). "
+                         "Auto-enabled when any input exceeds "
+                         "LANCET2_STREAM_BAM_THRESHOLD_GB (default 2); "
+                         "--no-stream-bam forces whole-file decode")
+    pl.add_argument("--no-stream-bam", action="store_true",
+                    help="force in-memory whole-file decode regardless of size")
+    pl.add_argument("--no-active-region", action="store_true")
+    pl.add_argument("--no-contig-check", action="store_true")
+    pl.add_argument("--stream-windows", choices=["auto", "on", "off"], default="auto",
+                    help="stream the window manifest instead of materializing "
+                         "it (WGS memory bound; auto streams when the expected "
+                         "count exceeds 131072, reference "
+                         "pipeline_executor.cpp:137-150)")
+    pl.add_argument("--genome-gc-bias", type=float, default=0.41)
+
+    # diagnostics
+    pl.add_argument("--probe-variants", default=None,
+                    help="truth VCF/TSV of variants to trace through the pipeline")
+    pl.add_argument("--probe-results", default=None, help="probe forensics TSV output")
+    pl.add_argument("--out-graphs-tgz", default=None,
+                    help="merged tar.gz of per-window graph snapshots (DOT)")
+    pl.add_argument("--graph-snapshots", choices=["final", "verbose"], default="final",
+                    help="verbose adds per-prune-stage snapshots (needs --out-graphs-tgz)")
+    pl.add_argument("--checkpoint", action="store_true",
+                    help="write a window-cursor checkpoint next to the VCF and "
+                         "resume from it when present")
+    pl.add_argument("--append-history", action="store_true",
+                    help="append this run's stats + stage profile to "
+                         "profiling/history.jsonl (the committed trend file; "
+                         "analyze with scripts/analyze_profile.py)")
     return parser
 
 
@@ -83,8 +197,8 @@ def run_pipeline(args, command_line: str) -> dict:
     t0 = time.monotonic()
     _reject_unsupported(args)
 
-    from lancet2_tpu.core.sample_info import parse_sample_spec
-    from lancet2_tpu.hts.uri import validate_cloud_access
+    from lancet2_tpu_torch.core.sample_info import parse_sample_spec
+    from lancet2_tpu_torch.hts.uri import validate_cloud_access
 
     validate_cloud_access(
         args.normal + args.tumor + [parse_sample_spec(s)[0] for s in args.sample]
@@ -99,7 +213,7 @@ def run_pipeline(args, command_line: str) -> dict:
         raise SystemExit("at least one of --normal/--tumor/--sample is required")
 
     if args.read_filter:
-        from lancet2_tpu.hts.filter_expr import FilterExprError, compile_filter
+        from lancet2_tpu_torch.hts.filter_expr import FilterExprError, compile_filter
 
         try:
             compile_filter(args.read_filter)
@@ -112,7 +226,7 @@ def run_pipeline(args, command_line: str) -> dict:
         f"{s.sample_name}({'case' if s.tag == 4 else 'ctrl'})" for s in samples))
 
     if not args.no_contig_check:
-        from lancet2_tpu.hts.bam import read_bam_header
+        from lancet2_tpu_torch.hts.bam import read_bam_header
 
         ref_lens = {c.name: c.length for c in ref.list_chroms()}
         for s in samples:
@@ -143,7 +257,7 @@ def run_pipeline(args, command_line: str) -> dict:
 
     skip_active = args.no_active_region
     if not skip_active:
-        from lancet2_tpu.hts.bam import open_bam
+        from lancet2_tpu_torch.hts.bam import open_bam
 
         if not has_md_tag(open_bam(samples[0].path, stream=args.stream_bam,
                                    ref=args.reference)):
@@ -178,7 +292,7 @@ def run_pipeline(args, command_line: str) -> dict:
                  expected_windows)
 
     if args.num_hosts > 1:
-        from lancet2_tpu.parallel.manifest import windows_for_host
+        from lancet2_tpu_torch.parallel.manifest import windows_for_host
 
         windows = windows_for_host(windows, args.host_index, args.num_hosts)
         for i, w in enumerate(windows):
@@ -186,7 +300,7 @@ def run_pipeline(args, command_line: str) -> dict:
         LOG.info("host %d/%d processes %d windows", args.host_index,
                  args.num_hosts, len(windows))
 
-    from lancet2_tpu.core.checkpoint import (
+    from lancet2_tpu_torch.core.checkpoint import (
         CheckpointFile,
         recover_prefix_records,
         split_windows_for_resume,
@@ -279,13 +393,54 @@ def run_pipeline(args, command_line: str) -> dict:
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     args = build_parser().parse_args(argv)
-    if args.command != "pipeline":
-        # index / cram are host-only and shared with the JAX package
-        from lancet2_tpu.cli.main import main as reference_main
+    if args.command == "pipeline":
+        run_pipeline(args, "lancet2-tpu-torch " + " ".join(argv))
+        return 0
+    if args.command == "index":
+        from lancet2_tpu_torch.hts.bai import build_bai
+        from lancet2_tpu_torch.hts.bam import _is_cram
+        from lancet2_tpu_torch.hts.bgzf import BgzfError
+        from lancet2_tpu_torch.hts.csi import build_csi
 
-        return reference_main(argv)
-    run_pipeline(args, "lancet2-tpu-torch " + " ".join(argv))
-    return 0
+        try:
+            if _is_cram(args.bam):
+                from lancet2_tpu_torch.hts.crai import build_crai
+
+                build_crai(args.bam, args.output)
+                print(args.output or args.bam + ".crai")
+                return 0
+            if args.csi:
+                out = build_csi(args.bam, args.output,
+                                min_shift=args.min_shift, depth=args.depth)
+            else:
+                out = build_bai(args.bam, args.output)
+        except FileNotFoundError:
+            print(f"error: no such file: {args.bam}", file=sys.stderr)
+            return 1
+        except (BgzfError, ValueError) as exc:
+            print(f"error: {args.bam}: not a BAM file ({exc})", file=sys.stderr)
+            return 1
+        print(out)
+        return 0
+    if args.command == "cram":
+        from lancet2_tpu_torch.hts.bam import BamWriter, _is_cram
+        from lancet2_tpu_torch.hts.cram import CramReader, M_GZIP, M_RANS4x8, bam_to_cram
+
+        method = M_RANS4x8 if args.codec == "rans4x8" else M_GZIP
+        if _is_cram(args.input):
+            reader = CramReader(args.input, args.reference)
+            sample = reader.sample_name
+            w = BamWriter(args.output, reader.references, sample_name=sample)
+            n = 0
+            for rec in reader.all_records():
+                w.add(rec)
+                n += 1
+            w.close()
+        else:
+            n = bam_to_cram(args.input, args.output, args.reference, method=method)
+        print(f"{args.output}: {n} records")
+        return 0
+    return 1
 
 
 if __name__ == "__main__":

@@ -1,46 +1,55 @@
-"""Batch executor on one torch device.
+"""Batch executor on one torch device: parallel phase-A prep + fused
+cross-window evidence DP.
 
-`TorchBatchPipelineExecutor` subclasses the JAX package's
-`BatchPipelineExecutor` (`lancet2_tpu/core/batch_pipeline.py`) and rewrites
-`execute` (reference `:325-613`) without jax: no `jax.devices()`, no mesh;
-one explicit `torch.device` and the port's `TorchGenotyper`.
+The JAX package's `core/batch_pipeline.py` with its JAX-only branches deleted
+(no `jax.devices()`, no mesh, no threads fallback for phase A): one explicit
+`torch.device` and the port's `TorchGenotyper`.
 
-  phase A  the reference's prep coordinator and fork workers, unchanged,
-           spawned through lancet2_tpu_torch.core.prep_worker; they run the
+  phase A  prep coordinator and fork workers (core/prep_worker.py) run the
            CPU layout on every device (max_regions = R_MAX, lt buckets
            _TARGET_BUCKETS, lq buckets _QUERY_BUCKETS), so payloads equal the
            JAX batch executor's on the CPU
   phase B  per window batch: pools uploaded, pass-1 span launched (async);
            the previous batch's pass 2 and phase C run while it executes
-  phase C  evidence assembly, VariantCall with host float64 DM PLs
-           (`_device_pl_tables` returns {} as the reference does off-TPU),
-           ordered VCF flush
+  phase C  evidence assembly, VariantCall with float64 DM PLs (on a CUDA
+           device through ops/genotype.py, else on the host), ordered VCF
+           flush
 
-No CUDA call happens before the prep workers start.
+No CUDA call happens before the prep workers start: the coordinator is
+spawned, and it forks the workers.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 from collections import deque
 
 import numpy as np
 import torch
 
-from lancet2_tpu.caller.genotyper import _QUERY_BUCKETS, _TARGET_BUCKETS
-from lancet2_tpu.caller.variant_call import VariantCall
-from lancet2_tpu.core.batch_pipeline import BatchPipelineExecutor
-from lancet2_tpu.core.prep_worker import map_pair_arrays
-from lancet2_tpu.core.variant_builder import StatusCode
-from lancet2_tpu.utils.logging import get_logger
-from lancet2_tpu.utils.profiling import StageTimer
-from lancet2_tpu_torch.caller.genotyper import TorchGenotyper
-from lancet2_tpu_torch.core.prep_worker import coordinator_main
-from lancet2_tpu_torch.ops.evidence_dp import R_MAX
+from lancet2_tpu_torch.caller.genotyper import (
+    _QUERY_BUCKETS,
+    _TARGET_BUCKETS,
+    TorchGenotyper,
+)
+from lancet2_tpu_torch.caller.variant_call import VariantCall
+from lancet2_tpu_torch.core.prep_worker import (
+    PackedWindow,
+    coordinator_main,
+    map_pair_arrays,
+)
+from lancet2_tpu_torch.core.variant_builder import BuilderParams, StatusCode
+from lancet2_tpu_torch.core.variant_store import VariantStore
+from lancet2_tpu_torch.ops.evidence_layout import R_MAX
+from lancet2_tpu_torch.ops.genotype import batched_genotype_pls_exact
+from lancet2_tpu_torch.utils.logging import get_logger
+from lancet2_tpu_torch.utils.profiling import StageTimer
 
 LOG = get_logger("batch_pipeline")
 
+DEFAULT_WINDOW_BATCH = 64
 LOOKAHEAD = 3  # window batches queued to the prep workers
 
 
@@ -57,20 +66,77 @@ def check_device(device: torch.device) -> torch.device:
     return device
 
 
-class TorchBatchPipelineExecutor(BatchPipelineExecutor):
-    def __init__(self, *args, device: torch.device, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.device = torch.device(device)
-        self.genotyper: TorchGenotyper | None = None
-
-    def _start_prep_workers(self, max_regions, lq_buckets, lt_buckets):
-        if not self._use_processes():
+class TorchBatchPipelineExecutor:
+    def __init__(
+        self,
+        params: BuilderParams,
+        ref,
+        samples,
+        windows,
+        *,
+        device: torch.device,
+        num_workers: int = 2,
+        window_batch: int = DEFAULT_WINDOW_BATCH,
+        pair_chunk: int = 2048,
+        checkpoint=None,
+        min_emit_pos=None,
+        band_margin: int | None = 96,
+        total_hint: int | None = None,
+        prep_mode: str = "auto",
+    ):
+        if prep_mode == "threads":
             raise ValueError("the port runs phase A in prep processes only "
                              "(--prep-mode threads is not supported)")
+        if not (hasattr(os, "fork") and os.name == "posix"):
+            raise RuntimeError("phase A forks its prep workers: needs a "
+                               "posix host")
+        self.device = torch.device(device)
+        self.genotyper: TorchGenotyper | None = None
+        self.params = params
+        self.ref = ref
+        self.samples = samples
+        self.streaming = not isinstance(windows, (list, tuple))
+        self.windows = windows if not self.streaming else None
+        self._window_iter = iter(windows) if self.streaming else None
+        self.total_hint = total_hint if total_hint is not None else (
+            len(windows) if not self.streaming else None
+        )
+        self.num_workers = max(1, num_workers)
+        self.window_batch = window_batch
+        self.pair_chunk = pair_chunk
+        self.checkpoint = checkpoint
+        self.band_margin = band_margin
+        self.store = VariantStore(
+            windows if not self.streaming else [], min_emit_pos=min_emit_pos
+        )
+        self.status_counts: dict[StatusCode, int] = {}
+        self.stage_timer = StageTimer()
+        self._procs: list = []
+        self._work_q = None
+        self._result_q = None
+        # results land here via a dedicated drain thread: worker->parent
+        # payloads are ~MB-scale and the mp.Queue pipe holds only ~64 KB,
+        # so if the parent read results only while waiting, workers would
+        # block on the pipe during the parent's whole device phase and
+        # prep/device overlap would collapse (measured: zero overlap at
+        # chr scale before the drain thread)
+        self._results: dict[int, PackedWindow] = {}
+        self._results_cv = threading.Condition()
+        self._drain_thread = None
+        self._drain_error = None
+
+    # ------------------------------------------------------------------
+    # phase A: one spawned coordinator that forks the prep workers
+    # ------------------------------------------------------------------
+    def _start_prep_workers(self, max_regions, lq_buckets, lt_buckets):
         import multiprocessing as mp
 
         n = max(1, min(self.num_workers, os.cpu_count() or self.num_workers))
         self._n_prep_workers = n
+        # SPAWN one clean coordinator (this process will hold the CUDA
+        # context, which a forked child cannot use); the coordinator decodes
+        # inputs once, then forks the N workers, which inherit the pools
+        # copy-on-write and talk to us through these spawn-context queues.
         ctx = mp.get_context("spawn")
         self._work_q = ctx.Queue()
         self._result_q = ctx.Queue()
@@ -86,8 +152,126 @@ class TorchBatchPipelineExecutor(BatchPipelineExecutor):
         self._start_drain_thread()
         LOG.info("prep: spawned coordinator + %d fork worker(s)", n)
 
-    def _device_pl_tables(self, pending_rows, devices):
-        return {}  # DM PLs stay on the host (caller/likelihood.py, float64)
+    def _stop_prep_workers(self):
+        if self._work_q is None:
+            return
+        # one sentinel per worker (the coordinator exits when its forked
+        # workers do)
+        for _ in range(getattr(self, "_n_prep_workers", 1)):
+            self._work_q.put(None)
+        for p in self._procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+        self._procs = []
+        if self._drain_thread is not None:
+            self._result_q.put(self._DRAIN_STOP)
+            self._drain_thread.join(timeout=30)
+            self._drain_thread = None
+        # error/abort paths can leave unconsumed shm payloads (workers
+        # unregister from their resource tracker — the executor owns the
+        # unlink); reclaim anything still parked in the results dict
+        for payload in self._results.values():
+            pairs = getattr(payload, "pairs", None)
+            if pairs and "shm" in pairs:
+                try:
+                    from multiprocessing import shared_memory
+
+                    seg = shared_memory.SharedMemory(name=pairs["shm"])
+                    seg.close()
+                    seg.unlink()
+                except Exception:
+                    pass
+        self._results.clear()
+
+    _DRAIN_STOP = ("__drain_stop__", None, None)
+
+    def _start_drain_thread(self):
+        def drain():
+            while True:
+                item = self._result_q.get()
+                if item[0] == "__drain_stop__":
+                    return
+                seq, kind, payload = item
+                with self._results_cv:
+                    if kind in ("error", "fatal"):
+                        self._drain_error = payload
+                    else:
+                        self._results[seq] = payload
+                    self._results_cv.notify_all()
+
+        self._drain_thread = threading.Thread(target=drain, daemon=True)
+        self._drain_thread.start()
+
+    def _wait_for(self, seqs: list[int]) -> list[PackedWindow]:
+        """Block until every seq in `seqs` has a payload; returns in order.
+
+        Fail-fast: raises on (a) a worker-reported error, (b) a coordinator
+        fatal (e.g. a killed worker, with the window seq it was processing),
+        or (c) silent coordinator death — never hangs on lost work."""
+        with self._results_cv:
+            while True:
+                if self._drain_error is not None:
+                    msg, tb = self._drain_error
+                    raise RuntimeError(f"prepare failed: {msg}\n{tb}")
+                if all(s in self._results for s in seqs):
+                    return [self._results.pop(s) for s in seqs]
+                self._results_cv.wait(timeout=1.0)
+                if self._procs and not any(p.is_alive()
+                                           for p in self._procs):
+                    # give the drain thread one beat to surface a queued
+                    # fatal before declaring silent death
+                    self._results_cv.wait(timeout=1.0)
+                    if self._drain_error is not None:
+                        continue
+                    if all(s in self._results for s in seqs):
+                        continue
+                    missing = [s for s in seqs if s not in self._results]
+                    raise RuntimeError(
+                        "prep coordinator died without reporting; "
+                        f"windows (seq) never prepared: {missing[:8]}"
+                    )
+
+    def _batches(self):
+        """Yield window batches from the list or the streaming iterator."""
+        if self.streaming:
+            batch: list = []
+            for w in self._window_iter:
+                batch.append(w)
+                if len(batch) >= self.window_batch:
+                    yield batch
+                    batch = []
+            if batch:
+                yield batch
+        else:
+            for lo in range(0, len(self.windows), self.window_batch):
+                yield self.windows[lo : lo + self.window_batch]
+
+
+    # ------------------------------------------------------------------
+    def _device_pl_tables(self, pending_rows) -> dict:
+        """Batched DM PLs on the CUDA device for every (call, sample) of a
+        window batch, grouped by allele count K, in float64: bit-equal to
+        the host engine (caller/likelihood.compute_genotype_pls).
+        Returns {row_index: {sample_name: pls}}; empty on the CPU, where
+        VariantCall computes the same PLs per sample on the host."""
+        if self.device.type != "cuda" or not pending_rows:
+            return {}
+        by_k: dict[int, list[tuple[int, str, list[int]]]] = {}
+        for row_idx, (_bi, _payload, variant, supports) in enumerate(pending_rows):
+            k = len(variant.alts) + 1
+            for sample_name, sup in supports.items():
+                counts = [sup.total_allele_cov(i) for i in range(k)]
+                by_k.setdefault(k, []).append((row_idx, sample_name, counts))
+
+        tables: dict[int, dict[str, object]] = {}
+        with self.stage_timer.stage("genotype_pls_device"):
+            for k, rows in by_k.items():
+                counts = np.array([r[2] for r in rows], np.int64)
+                pls = batched_genotype_pls_exact(counts, k, self.device)
+                for (row_idx, sample_name, _c), pl_row in zip(rows, pls):
+                    tables.setdefault(row_idx, {})[sample_name] = pl_row
+        return tables
 
     # ------------------------------------------------------------------
     def execute(self, out) -> dict:
@@ -217,7 +401,7 @@ class TorchBatchPipelineExecutor(BatchPipelineExecutor):
                                 pending_rows.append(
                                     (bi, payload, variant, supports))
 
-                    pls_tables = self._device_pl_tables(pending_rows, None)
+                    pls_tables = self._device_pl_tables(pending_rows)
                     per_window_calls: dict[int, list[VariantCall]] = {}
                     for row_idx, (bi, payload, variant, supports) in \
                             enumerate(pending_rows):

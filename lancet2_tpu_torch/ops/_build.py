@@ -1,6 +1,8 @@
-"""Build the port's CUDA kernels with nvcc at first use and load them.
+"""Build the port's CUDA kernels with nvcc at first use, load them, and count
+their launches.
 
-Every `csrc/*.cu` is compiled into one shared library with a plain C
+Every `csrc/*.cu` is compiled to an object by its own nvcc, all started
+together, and the objects are linked into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), under
 `lancet2_tpu_torch/_build/<hash>/`, where the hash covers the sources and the
 flags. The library is loaded with ctypes. A failed build raises: there is no
@@ -22,12 +24,21 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _lib = None
 BUILD_INFO: dict = {}
+
+# Launch counts, one per kernel wrapper: bumped only where a kernel is
+# launched, never by a plain version.
+LAUNCHES = {"span": 0, "evidence": 0, "sw_fitting": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -48,6 +59,22 @@ def _sources() -> list[str]:
                   if f.endswith((".cu", ".cuh")))
 
 
+def _run_all(cmds: list[list[str]], log) -> None:
+    """Run the commands at the same time; raise if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log.write(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(cmd[-1])} "
+                          f"({proc.returncode}):\n{out[-4000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib
@@ -65,15 +92,15 @@ def library() -> ctypes.CDLL:
         built = False
         if not os.path.exists(so):
             os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[s for s in srcs if s.endswith(".cu")]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
-                f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            nvcc, tag = _nvcc(), os.getpid()
+            cus = [s for s in srcs if s.endswith(".cu")]
+            objs = [os.path.join(out_dir, os.path.basename(s) + f".{tag}.o")
+                    for s in cus]
+            with open(os.path.join(out_dir, "nvcc.log"), "w") as log:
+                _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                          for s, o in zip(cus, objs)], log)
+                tmp = f"{so}.{tag}.tmp"
+                _run_all([[nvcc, "-shared", "-o", tmp, *objs]], log)
             os.replace(tmp, so)
             built = True
         _lib = ctypes.CDLL(so)

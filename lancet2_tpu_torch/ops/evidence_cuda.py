@@ -10,7 +10,8 @@ device:
   * on any other device it raises.
 
 A finalize copies the outputs to the host (this is where a caller waits for
-the device) and returns the dict of `lancet2_tpu.ops.evidence_dp`.
+the device) and returns the dict of `lancet2_tpu.ops.evidence_dp`. Launch
+counts live in ops/_build.py (`LAUNCHES`, re-exported here).
 
 The TPU's padding (Lq % 8, Lt % 128, 128-pair tiles), bit-packed output
 columns and descent taint are not carried over: the kernel takes any shape
@@ -25,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from lancet2_tpu_torch.ops._build import library
+from lancet2_tpu_torch.ops._build import LAUNCHES, library, reset_launches
 from lancet2_tpu_torch.ops.evidence_dp import (
     MAX_LEN,
     R_MAX,
@@ -39,13 +40,9 @@ from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS, KernelParams
 
 KERNEL_R = (0, 1, 2, 4)  # instantiated region-slot counts (0 = span)
 
-# Launch counts, one per wrapper: bumped only where a kernel is launched.
-LAUNCHES = {"span": 0, "evidence": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+__all__ = ["LAUNCHES", "reset_launches", "span_pairs_submit",
+           "span_pairs_finalize", "evidence_pairs_submit",
+           "evidence_pairs_finalize"]
 
 
 def _check(q, qu, q_lens, t, t_lens, regions, R):

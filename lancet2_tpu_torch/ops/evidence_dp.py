@@ -25,20 +25,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lancet2_tpu.ops.affine_dp import NEG_INF, READ_TO_HAP, AlignParams
+from lancet2_tpu_torch.ops.affine_dp import NEG_INF, READ_TO_HAP, AlignParams
+from lancet2_tpu_torch.ops.evidence_layout import (  # noqa: F401
+    BIG_BQ,
+    R_MAX,
+    REGION_FILL,
+    REGION_FLOAT_KEYS,
+    REGION_INT_KEYS,
+    SPAN_KEYS,
+)
 from lancet2_tpu_torch.ops.params import KernelParams, from_jax
 
-R_MAX = 4  # region slots per pair, as lancet2_tpu.ops.evidence_dp.R_MAX
-BIG_BQ = 255
 # The packed cummax keeps the column in 13 bits and the clamped value in 18:
 # exact while |C| < 2^17, which Lq, Lt <= MAX_LEN guarantees.
 MAX_LEN = 8192
-
-REGION_INT_KEYS = ("qv", "aligned", "min_bq")
-REGION_FLOAT_KEYS = ("raw", "pbq", "matches")
-SPAN_KEYS = ("score", "t_end", "t_start", "nm")
-REGION_FILL = {"qv": -1, "aligned": 0, "min_bq": BIG_BQ,
-               "raw": 0.0, "pbq": 0.0, "matches": 0.0}
 
 
 def evidence_dp_torch(q, qu, q_lens, t, t_lens, regions, kp: KernelParams,

@@ -1,10 +1,12 @@
 """Kernel parameters carried across from the JAX package.
 
 The caller has no weights. Its "parameters" are the read->haplotype scoring
-(`lancet2_tpu.ops.affine_dp.READ_TO_HAP`) and the Phred->confidence table
-(`lancet2_tpu.base.phred.PHRED_TO_CONFIDENCE`). Both are imported from the
-JAX package's jax-free modules, never retyped, and turned here into the ints
-and the float32 table that the plain version and the CUDA kernel take.
+(`READ_TO_HAP`, ops/affine_dp.py) and the Phred->confidence table
+(`PHRED_TO_CONFIDENCE`, base/phred.py). This package keeps its own copies of
+both modules; `from_jax` turns the values into the ints and the float32 table
+that the plain versions and the CUDA kernels take. It reads only the
+dataclass fields and the table's values, so it takes the JAX package's
+objects as well (the tests hold the two copies equal).
 """
 
 from __future__ import annotations
@@ -14,8 +16,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from lancet2_tpu.base.phred import PHRED_TO_CONFIDENCE
-from lancet2_tpu.ops.affine_dp import READ_TO_HAP, AlignParams
+from lancet2_tpu_torch.base.phred import PHRED_TO_CONFIDENCE
+from lancet2_tpu_torch.ops.affine_dp import READ_TO_HAP, AlignParams
 
 
 @dataclass(frozen=True)
@@ -35,8 +37,9 @@ class KernelParams:
 
 def from_jax(align_params: AlignParams = READ_TO_HAP,
              conf_table=PHRED_TO_CONFIDENCE) -> KernelParams:
-    """Turn the JAX package's scoring dataclass and confidence table into
-    KernelParams. Only the fitting single-affine mode is ported."""
+    """Turn a scoring dataclass (the fields match, mismatch, gap_open1,
+    gap_extend1, dual, free_target_ends) and a 256-entry confidence table
+    into KernelParams. Only the fitting single-affine mode is ported."""
     if align_params.dual or not align_params.free_target_ends:
         raise NotImplementedError(
             "the evidence DP covers the fitting single-affine mode only")

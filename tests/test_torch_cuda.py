@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+K1/K2 (ops/evidence_cuda.py) and K3 (ops/sw_cuda.py).
 
 Marked `cuda`: without a CUDA device every test skips. This file imports no
 jax, so on a machine with the card and without jax it runs on its own:
@@ -15,8 +16,10 @@ import pytest
 import torch
 
 from lancet2_tpu_torch.ops import evidence_cuda as ec
+from lancet2_tpu_torch.ops import sw_cuda
 from lancet2_tpu_torch.ops.evidence_dp import R_MAX, evidence_dp_torch
 from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
+from lancet2_tpu_torch.ops.sw_dp import fitting_scores_torch
 
 
 def _pairs(seed: int, B: int, Lq: int, Lt: int, R: int):
@@ -65,3 +68,34 @@ def test_kernel_matches_plain_on_card(R):
         assert torch.equal(got_i, plain_i) and torch.equal(got_f, plain_f)
     key = "span" if R == 0 else "evidence"
     assert ec.LAUNCHES[key] == before[key] + 1
+
+
+@pytest.mark.cuda
+def test_sw_fitting_kernel_matches_plain_on_card():
+    """K3 at an odd shape, with N bases, padding and degenerate lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    kp = READ_TO_HAP_PARAMS.to(dev)
+    rng = np.random.default_rng(500)
+    B, Lq, Lt = 300, 77, 203
+    t = rng.integers(0, 4, (B, Lt)).astype(np.uint8)
+    q = np.full((B, Lq), 5, np.uint8)
+    q_lens = rng.integers(1, Lq + 1, B).astype(np.int32)
+    t_lens = rng.integers(1, Lt + 1, B).astype(np.int32)
+    for b in range(B):
+        n = int(q_lens[b])
+        off = int(rng.integers(0, max(1, Lt - n)))
+        read = np.concatenate([t[b, off:off + n], rng.integers(0, 4, n)])[:n]
+        q[b, :n] = np.where(rng.random(n) < 0.1, rng.integers(0, 5, n), read)
+        t[b, t_lens[b]:] = 5
+    t[rng.random((B, Lt)) < 0.02] = 4
+    q_lens[:4] = (0, Lq + 1, -1, 3)
+    t_lens[3:5] = (0, Lt + 9)
+    args = [torch.from_numpy(a).to(dev) for a in (q, q_lens, t, t_lens)]
+    want = fitting_scores_torch(*args, kp)
+    before = ec.LAUNCHES["sw_fitting"]
+    got = sw_cuda.fitting_scores(*args, kp)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ec.LAUNCHES["sw_fitting"] == before + 1

@@ -22,9 +22,11 @@ from lancet2_tpu.ops.evidence_dp import R_MAX as JAX_R_MAX
 from lancet2_tpu.ops.evidence_dp import evidence_dp as jax_evidence_dp
 from lancet2_tpu.ops.evidence_pallas import D_MAX
 from lancet2_tpu_torch.caller.genotyper import TorchGenotyper
-from lancet2_tpu_torch.core import prep_worker as port_prep
 from lancet2_tpu_torch.ops import evidence_cuda as ec
 from lancet2_tpu_torch.ops.evidence_dp import R_MAX, SPAN_KEYS, evidence_dp
+from lancet2_tpu_torch.base.phred import PHRED_TO_CONFIDENCE as PORT_CONF
+from lancet2_tpu_torch.ops.affine_dp import HAP_TO_REF as PORT_HAP_TO_REF
+from lancet2_tpu_torch.ops.affine_dp import READ_TO_HAP as PORT_READ_TO_HAP
 from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS, from_jax
 from test_evidence_fused import _pools_and_pairs, component  # noqa: F401
 from test_evidence_pallas import KEYS, _rand_case
@@ -190,7 +192,12 @@ def test_from_jax_round_trips_parameters():
     assert kp.gap_open == READ_TO_HAP_PARAMS.gap_open
     with pytest.raises(NotImplementedError):
         from_jax(HAP_TO_REF)
-    assert R_MAX == JAX_R_MAX == port_prep.R_MAX
+    assert R_MAX == JAX_R_MAX
+    # the port's own copies of the scoring and the confidence table
+    assert vars(PORT_READ_TO_HAP) == vars(READ_TO_HAP)
+    assert vars(PORT_HAP_TO_REF) == vars(HAP_TO_REF)
+    assert np.array_equal(np.asarray(PORT_CONF), np.asarray(PHRED_TO_CONFIDENCE))
+    assert np.asarray(PORT_CONF).dtype == np.asarray(PHRED_TO_CONFIDENCE).dtype
 
 
 def test_indexed_genotyper_matches_jax(component):  # noqa: F811
@@ -219,21 +226,3 @@ def test_indexed_genotyper_matches_jax(component):  # noqa: F811
         a, b = np.asarray(got[k]), np.asarray(want[k])
         assert np.array_equal(a[slot_read], b[slot_read]), k
     assert gate.sum() > 0 and (~gate).sum() > 0
-
-
-def test_prep_stand_in_holds_only_r_max():
-    """The prep coordinator's stand-in for the engine module carries R_MAX
-    and nothing else (phase A must not reach the engine)."""
-    import subprocess
-    import sys
-
-    code = (
-        "import sys\n"
-        "from lancet2_tpu_torch.core.prep_worker import install_engine_constants\n"
-        "install_engine_constants()\n"
-        "from lancet2_tpu.ops.evidence_dp import R_MAX\n"
-        "import lancet2_tpu.ops.evidence_dp as m\n"
-        "assert R_MAX == 4 and not hasattr(m, 'evidence_dp')\n"
-        "assert 'jax' not in sys.modules and 'torch' not in sys.modules\n"
-    )
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
