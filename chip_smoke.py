@@ -10,7 +10,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   3. K1 (R=0) and K2 (R in 1, 2, 4) against their plain PyTorch versions on
      the card, exact equality required, on seeded pairs at Lq 160,
      Lt in {256, 384}, B 8192 with planted indels and deletions longer than
-     31 columns; both times printed;
+     31 columns, on the edge batch of ops/evidence_cases.py (B 1000, Lt 256:
+     q_len and t_len at the kernel's stripe and chunk boundaries and out of
+     range, N bases, regions at column 0, negative, ending at t_len and
+     inactive) and at a long band (B 1024, Lt 2048); both times printed,
+     and each R's resident warps per SM;
   4. the port's batch pipeline with --device cuda on the simulated 1 Mb
      tumor/normal fixture (40x/60x, seed 11): windows/s, wall time by
      phase, launch counts of both kernels (both must be > 0), pass-2
@@ -39,6 +43,7 @@ are made from seeds; the fixture is cached under .smoke_cache/ (gitignored).
 
 from __future__ import annotations
 
+import ctypes
 import gzip
 import json
 import os
@@ -51,6 +56,10 @@ LQ, B = 160, 8192
 CASES = [(0, 384), (0, 256), (1, 256), (1, 384), (2, 256), (2, 384),
          (4, 256), (4, 384)]
 MAIN_SHAPE = {0: 384, 1: 256}  # (R -> Lt) reported per kernel in the JSON
+# (B, Lq, Lt) of phase 3's other batches: the edge batch of
+# ops/evidence_cases.py (every stripe and chunk boundary, degenerate lengths,
+# N bases, regions at the edges) and a long target band
+EDGE_CASES = {"edge": (1000, LQ, 256), "long_band": (1024, LQ, 2048)}
 TOLERANCE = 0  # the kernel must equal its plain version bit for bit
 # the window step at bench.py's shape (bench_window_step)
 STEP = dict(num_windows=16, reads_per_window=128, read_len=128, num_haps=4,
@@ -173,9 +182,9 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def check_kernels(dev) -> dict:
-    """Phase 3: every instantiated kernel against its plain version."""
-    import numpy as np
+def hold_kernel(dev, R: int, host, what: str, reps: int = 5) -> dict:
+    """K1 (R=0) or K2 on the pairs `host` (numpy arrays, as make_pairs)
+    against its plain version on the card: exact equality required."""
     import torch
 
     from lancet2_tpu_torch.ops import evidence_cuda as ec
@@ -183,47 +192,61 @@ def check_kernels(dev) -> dict:
     from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
 
     kp = READ_TO_HAP_PARAMS.to(dev)
+    q, qu, ql, t, tl, reg = (torch.from_numpy(a).to(dev) for a in host)
+    Bn, Lq = q.shape
+    Lt = t.shape[1]
+
+    def kernel():
+        if R == 0:
+            return ec.span_pairs_submit(q, ql, t, tl, kp), None
+        return ec.evidence_pairs_submit(q, qu, ql, t, tl, reg, R, kp)
+
+    def plain():
+        return ec._pack(evidence_dp_torch(q, qu, ql, t, tl, reg, kp,
+                                          r_max=R), R)
+
+    k_i, k_f = kernel()
+    torch.cuda.synchronize()
+    io_bytes = nbytes(q, ql, t, tl, k_i) if R == 0 else nbytes(
+        q, qu, ql, t, tl, reg, kp.conf, k_i, k_f)
+    p_i, p_f = plain()
+    torch.cuda.synchronize()
+    err = int((k_i.long() - p_i.long()).abs().max())
+    if R:
+        err = max(err, float((k_f - p_f).abs().max()))
+    exact = torch.equal(k_i, p_i) and (R == 0 or torch.equal(
+        k_f.view(torch.int32), p_f.view(torch.int32)))
+    long_dels = int((p_i[:, 3] >= 32).sum())
+    ms = time_cuda(kernel, reps)
+    plain_ms = time_cuda(plain, 1)
+    cells = dp_cells(host[2], host[4], Lq, Lt)
+    log(f"kernel {what} R={R} Lq={Lq} Lt={Lt} B={Bn}: exact={exact} "
+        f"max_abs_err={err} pairs_nm>=32={long_dels} kernel_ms={ms:.3f} "
+        f"plain_ms={plain_ms:.3f} kernel_gcups={cells / (ms * 1e6):.3f} "
+        f"cells={cells}")
+    if not exact or err > TOLERANCE:
+        raise AssertionError(f"kernel {what} R={R} Lt={Lt} disagrees with its "
+                             f"plain version (max_abs_err={err})")
+    if long_dels == 0:
+        raise AssertionError(f"{what}: no deletion longer than 31 won")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, cells=cells,
+                bytes=io_bytes)
+
+
+def check_kernels(dev) -> dict:
+    """Phase 3: every instantiated kernel against its plain version, at the
+    main path's shapes, on the edge batch and at a long target band."""
+    from lancet2_tpu_torch.ops.evidence_cases import edge_pairs
+
     results = {}
     for R, Lt in CASES:
-        host = make_pairs(1000 + 10 * R + Lt, Lt, R)
-        q, qu, ql, t, tl, reg = (torch.from_numpy(a).to(dev) for a in host)
-
-        def kernel():
-            if R == 0:
-                return ec.span_pairs_submit(q, ql, t, tl, kp), None
-            return ec.evidence_pairs_submit(q, qu, ql, t, tl, reg, R, kp)
-
-        def plain():
-            return ec._pack(evidence_dp_torch(q, qu, ql, t, tl, reg, kp,
-                                              r_max=R), R)
-
-        k_i, k_f = kernel()
-        torch.cuda.synchronize()
-        io_bytes = nbytes(q, ql, t, tl, k_i) if R == 0 else nbytes(
-            q, qu, ql, t, tl, reg, kp.conf, k_i, k_f)
-        p_i, p_f = plain()
-        torch.cuda.synchronize()
-        err = int((k_i.long() - p_i.long()).abs().max())
-        if R:
-            err = max(err, float((k_f - p_f).abs().max()))
-        exact = torch.equal(k_i, p_i) and (R == 0 or torch.equal(k_f, p_f))
-        nm = p_i[:, 3].cpu().numpy()
-        long_dels = int((nm >= 32).sum())
-        ms = time_cuda(kernel, 5)
-        plain_ms = time_cuda(plain, 1)
-        gcups = B * LQ * Lt / (ms * 1e6)
-        log(f"kernel R={R} Lq={LQ} Lt={Lt} B={B}: exact={exact} "
-            f"max_abs_err={err} pairs_nm>=32={long_dels} "
-            f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-            f"kernel_gcups={gcups:.3f}")
-        if not exact or err > TOLERANCE:
-            raise AssertionError(f"kernel R={R} Lt={Lt} disagrees with its "
-                                 f"plain version (max_abs_err={err})")
-        if long_dels == 0:
-            raise AssertionError("fixture planted no deletion longer than 31")
-        results[(R, Lt)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                cells=dp_cells(host[2], host[4], LQ, Lt),
-                                bytes=io_bytes)
+        results[("main", R, Lt)] = hold_kernel(
+            dev, R, make_pairs(1000 + 10 * R + Lt, Lt, R), "main")
+    for R in (0, 1, 2, 4):
+        for what, (Bn, Lq, Lt) in EDGE_CASES.items():
+            results[(what, R, Lt)] = hold_kernel(
+                dev, R, edge_pairs(2000 + 10 * R + Lt, Bn, Lq, Lt, R), what,
+                reps=1)
     return results
 
 
@@ -461,6 +484,14 @@ def main() -> int:
                     or "Compiling entry" in line):
                 log("  ptxas: " + line.strip())
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for R in ec.KERNEL_R:
+        resident = ctypes.c_int(0)
+        if ec._kernel(R)[0](1 << 30, ctypes.byref(resident)) != 0:
+            raise RuntimeError(f"occupancy query failed for R={R}")
+        log(f"phase 2: evidence DP R={R}: {resident.value / sms:.1f} resident "
+            f"warps (pairs in flight) per SM of {sms}")
+
     # the repo's C++ (native/) is built at first use too: build it here, so
     # that phase 4 times the pipeline and not g++
     from lancet2_tpu_torch.base import native_core
@@ -527,7 +558,6 @@ def main() -> int:
     check_pls(dev)
 
     clock_hz = card_clock_hz()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"phase 9: bounds at {clock_hz / 1e6:.0f} MHz x {sms} SMs x "
         f"{INT32_LANES_PER_SM} int32 lanes, {HBM_BYTES_PER_S / 1e12} TB/s")
     kernels = []
@@ -535,8 +565,8 @@ def main() -> int:
             ("span", 0, "lancet2_tpu/ops/evidence_pallas.py:514", "span"),
             ("evidence", 1, "lancet2_tpu/ops/evidence_pallas.py:546",
              "evidence")):
-        main = kres[(R, MAIN_SHAPE[R])]
-        errs = [v["max_abs_err"] for (r, _lt), v in kres.items()
+        main = kres[("main", R, MAIN_SHAPE[R])]
+        errs = [v["max_abs_err"] for (_what, r, _lt), v in kres.items()
                 if (r == 0) == (R == 0)]
         bound_ms, bound_by = bound(ops_per_cell(name, R) * main["cells"],
                                    main["bytes"], clock_hz, sms)
@@ -548,11 +578,11 @@ def main() -> int:
             "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
         })
-    for (R, Lt), v in sorted(kres.items()):
+    for (what, R, Lt), v in kres.items():
         name = "span" if R == 0 else "evidence"
         b_ms, b_by = bound(ops_per_cell(name, R) * v["cells"], v["bytes"],
                            clock_hz, sms)
-        log(f"phase 9: bound R={R} Lt={Lt}: {b_ms:.4f} ms ({b_by}); "
+        log(f"phase 9: bound {what} R={R} Lt={Lt}: {b_ms:.4f} ms ({b_by}); "
             f"kernel {v['ms']:.3f} ms")
     for case, v in swres.items():
         b_ms, b_by = bound(ops_per_cell("sw_fitting") * v["cells"],

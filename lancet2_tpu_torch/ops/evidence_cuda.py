@@ -15,7 +15,8 @@ counts live in ops/_build.py (`LAUNCHES`, re-exported here).
 
 The TPU's padding (Lq % 8, Lt % 128, 128-pair tiles), bit-packed output
 columns and descent taint are not carried over: the kernel takes any shape
-and is exact at any deletion distance.
+and is exact at any deletion distance. A launch allocates one boundary row
+per resident warp (2 * (3 + 6R) * Lt ints each) and a pair counter.
 """
 
 from __future__ import annotations
@@ -78,13 +79,19 @@ def _check(q, qu, q_lens, t, t_lens, regions, R):
 
 @functools.cache
 def _kernel(R: int):
-    """The C entry point `l2t_evidence_dp_r<R>` of csrc/evidence_dp.cu; it
-    returns cudaGetLastError() of the launch."""
-    fn = getattr(library(), f"l2t_evidence_dp_r{R}")
+    """The C entry points of csrc/evidence_dp.cu for R: `slots(B, &n)` gives
+    the warps of a launch over B pairs (each needs a boundary row of
+    2 * (3 + 6R) * Lt ints of scratch), and the launch returns
+    cudaGetLastError()."""
+    lib = library()
+    slots = getattr(lib, f"l2t_evidence_dp_slots_r{R}")
+    slots.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    slots.restype = ctypes.c_int
+    fn = getattr(lib, f"l2t_evidence_dp_r{R}")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci] * 7 + [vp] * 4
+    fn.argtypes = [vp] * 7 + [ci] * 8 + [vp] * 5
     fn.restype = ci
-    return fn
+    return slots, fn
 
 
 def _pack(out: dict, R: int):
@@ -109,19 +116,27 @@ def _run(q, qu, q_lens, t, t_lens, regions, R: int, kp: KernelParams):
     fout = torch.empty((B, 3 * R), dtype=torch.float32, device=dev)
     if B == 0:
         return iout, fout
-    fn = _kernel(R)
-    # scratch and the inputs may be freed while the kernel runs: the caching
-    # allocator hands their memory out again only in this stream's order
-    scratch = torch.empty(2 * (3 + 6 * R) * Lt * B, dtype=torch.int32,
-                          device=dev)
-    conf = kp.to(dev).conf
+    slots_fn, fn = _kernel(R)
     with torch.cuda.device(dev):
+        slots = ctypes.c_int(0)
+        err = slots_fn(B, ctypes.byref(slots))
+        if err != 0:
+            raise RuntimeError(f"evidence DP kernel (R={R}): occupancy query "
+                               f"failed: CUDA error {err}")
+        # boundary rows, one per warp of the launch, and the pair counter;
+        # they and the inputs may be freed while the kernel runs: the caching
+        # allocator hands their memory out again only in this stream's order
+        scratch = torch.empty(slots.value * 2 * (3 + 6 * R) * Lt,
+                              dtype=torch.int32, device=dev)
+        next_pair = torch.zeros(1, dtype=torch.int32, device=dev)
+        conf = kp.to(dev).conf
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), qu.data_ptr() if R else None,
                  q_lens.data_ptr(), t.data_ptr(), t_lens.data_ptr(),
                  regions.data_ptr() if R else None, conf.data_ptr(),
                  B, Lq, Lt, kp.match, kp.mismatch, kp.gap_open,
-                 kp.gap_extend, scratch.data_ptr(), iout.data_ptr(),
+                 kp.gap_extend, slots.value, scratch.data_ptr(),
+                 next_pair.data_ptr(), iout.data_ptr(),
                  fout.data_ptr() if R else None, stream)
     if err != 0:
         raise RuntimeError(f"evidence DP kernel (R={R}) launch failed: "

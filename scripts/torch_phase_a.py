@@ -29,16 +29,47 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PIPELINE = r"""
-import json, os, sys
+import json, os, re, sys
 sys.path.insert(0, os.getcwd())
 from chip_smoke import run_port
+from lancet2_tpu_torch.ops import _build
+from lancet2_tpu_torch.base import native_core
 from lancet2_tpu_torch.utils.simulate import make_chr_scale_fixture
-cache, tag = sys.argv[1], sys.argv[2]
+cache, tag, trace = sys.argv[1], sys.argv[2], sys.argv[3] == "trace"
 fx = make_chr_scale_fixture(1000, cache)
-st = run_port(fx, os.path.join(cache, tag + ".vcf.gz"), "cuda")
-print(json.dumps({"tag": tag, "windows_per_s": st["windows_per_s"],
-                  "wall": {k: v["seconds"] for k, v in st["wall_profile"].items()},
-                  "stages": {k: v["seconds"] for k, v in st["stage_profile"].items()}}))
+# build the tree's CUDA kernels and native code first, as chip_smoke.py's
+# phase 2 does, so that the run times the pipeline and not the compilers
+_build.library()
+native_core.available()
+out = {"tag": tag}
+if trace:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        st = run_port(fx, os.path.join(cache, tag + ".vcf.gz"), "cuda")
+    dev = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(
+            e, "self_cuda_time_total", 0)
+        if us <= 0:
+            continue
+        # kernel names come demangled (kernel<4>) or mangled (kernelILi4E)
+        m = re.search(r"(evidence_dp|sw_fitting)_kernel(?:<(\d)>|ILi(\d)E)?",
+                      e.key)
+        r = m and (m.group(2) or m.group(3))
+        name = (m.group(1) + (f" R={r}" if r else "")) if m else e.key[:70]
+        s, n = dev.get(name, (0.0, 0))
+        dev[name] = (s + us / 1e6, n + e.count)
+    total = sum(s for s, _ in dev.values())
+    out["device_self_s"] = {k: [round(s, 6), n] for k, (s, n) in
+                            sorted(dev.items(), key=lambda kv: -kv[1][0])}
+    out["device_total_s"] = total
+    out["busy_share_at_most"] = total / st["runtime_s"]
+else:
+    st = run_port(fx, os.path.join(cache, tag + ".vcf.gz"), "cuda")
+out.update({"windows_per_s": st["windows_per_s"],
+            "wall": {k: v["seconds"] for k, v in st["wall_profile"].items()},
+            "stages": {k: v["seconds"] for k, v in st["stage_profile"].items()}})
+print(json.dumps(out))
 """
 
 _COORDINATOR = r"""
@@ -109,6 +140,8 @@ def main() -> int:
                     help="coordinator mode: fixture size in kb")
     ap.add_argument("--workers", type=int, default=6,
                     help="coordinator mode: prep workers")
+    ap.add_argument("--trace", action="store_true",
+                    help="pipeline mode: run under torch.profiler")
     args = ap.parse_args()
     os.makedirs(args.cache, exist_ok=True)
     cache = os.path.abspath(args.cache)
@@ -117,7 +150,8 @@ def main() -> int:
         tree = os.path.abspath(tree)
         if args.mode == "pipeline":
             cmd = [sys.executable, "-c", _PIPELINE, cache,
-                   tag or os.path.basename(tree)]
+                   tag or os.path.basename(tree),
+                   "trace" if args.trace else "plain"]
         else:
             cmd = [sys.executable, "-c", _COORDINATOR, cache, str(args.kb),
                    str(args.workers)]

@@ -17,6 +17,7 @@ import torch
 
 from lancet2_tpu_torch.ops import evidence_cuda as ec
 from lancet2_tpu_torch.ops import sw_cuda
+from lancet2_tpu_torch.ops.evidence_cases import edge_pairs
 from lancet2_tpu_torch.ops.evidence_dp import R_MAX, evidence_dp_torch
 from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
 from lancet2_tpu_torch.ops.sw_dp import fitting_scores_torch
@@ -68,6 +69,33 @@ def test_kernel_matches_plain_on_card(R):
         assert torch.equal(got_i, plain_i) and torch.equal(got_f, plain_f)
     key = "span" if R == 0 else "evidence"
     assert ec.LAUNCHES[key] == before[key] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(400, 100, 160), (64, 160, 2048)],
+                         ids=["edge", "long_band"])
+@pytest.mark.parametrize("R", [0, 1, 2, 4])
+def test_kernel_matches_plain_on_edge_batch(R, shape):
+    """K1/K2 on the edge batch of ops/evidence_cases.py: q_len and t_len at
+    the kernel's stripe (32-row) and chunk (32-column) boundaries, zero and
+    out of range; N bases; regions at column 0, negative, ending at t_len
+    and inactive; insertions across row 32; deletions of 33-45 columns;
+    tandem-repeat targets. Bit for bit, float32 bit patterns included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    kp = READ_TO_HAP_PARAMS.to(dev)
+    B, Lq, Lt = shape
+    args = [torch.from_numpy(a).to(dev)
+            for a in edge_pairs(900 + R + Lt, B, Lq, Lt, R)]
+    plain_i, plain_f = ec._pack(evidence_dp_torch(*args, kp, r_max=R), R)
+    if R == 0:
+        got_i = ec.span_pairs_submit(args[0], args[2], args[3], args[4], kp)
+        assert torch.equal(got_i, plain_i)
+    else:
+        got_i, got_f = ec.evidence_pairs_submit(*args, R, kp)
+        assert torch.equal(got_i, plain_i)
+        assert torch.equal(got_f.view(torch.int32), plain_f.view(torch.int32))
 
 
 @pytest.mark.cuda
