@@ -24,8 +24,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   6. K3 (the score-only fitting DP) against its plain version on the card,
      exact equality required, at bench.py's kernel shape (B 2048, Lq 152,
      Lt 1024), at the window step's (B 8192, Lq 128, Lt 256, the pairs of
-     phase 7's batch) and on an edge batch (N bases, padding, short and
-     degenerate lengths); kernel and plain times and GCUPS printed;
+     phase 7's batch), on an edge batch (N bases, padding, short and
+     degenerate lengths), and on the edge batch of ops/sw_cases.py at Lq
+     152 (q_len and t_len at the kernel's lane and stripe edges, tandem
+     repeats), at Lq 520 (three stripes) and at Lt 2048; kernel and plain
+     times and GCUPS printed, and each launch's rows per lane (phase 2
+     logs each instantiation's resident warps per SM);
   7. the window step at bench.py's full width (16 windows of 128 reads of
      128 bases against 4 haplotypes of 512, band margin 64) on the card
      for a few steps: windows/s and K3's launch count (must be > 0); its
@@ -60,6 +64,11 @@ MAIN_SHAPE = {0: 384, 1: 256}  # (R -> Lt) reported per kernel in the JSON
 # ops/evidence_cases.py (every stripe and chunk boundary, degenerate lengths,
 # N bases, regions at the edges) and a long target band
 EDGE_CASES = {"edge": (1000, LQ, 256), "long_band": (1024, LQ, 2048)}
+# (B, Lq, Lt) of phase 6's batches from ops/sw_cases.py: the shared K3 edge
+# batch at bench.py's Lq (rows per lane 5, one stripe), queries of three
+# stripes, and a long band
+SW_CASES = {"shared_edge": (1000, 152, 256), "long_query": (1024, 520, 640),
+            "long_band": (1024, 152, 2048)}
 TOLERANCE = 0  # the kernel must equal its plain version bit for bit
 # the window step at bench.py's shape (bench_window_step)
 STEP = dict(num_windows=16, reads_per_window=128, read_len=128, num_haps=4,
@@ -67,16 +76,21 @@ STEP = dict(num_windows=16, reads_per_window=128, read_len=128, num_haps=4,
 STEP_MARGIN, STEP_REPS = 64, 5
 
 # The bound of a kernel: the larger of its int32 operations over the card's
-# int32 issue rate (64 lanes per SM x SMs x the SM clock nvidia-smi reports)
-# and its bytes (each input read once, each output written once) over the
-# 3.35 TB/s of HBM. Operations per DP cell of the minimal recurrence,
-# counted from the kernels' code: K3 10 (substitution score 1, diagonal 1,
-# V 3, Ht 1, F 3, H 1); K1 20 (K3's 10, plus a three-way select of the
-# start and NM companions and NM's four updates); K2 20 + 36 per region
-# slot (six companions, each a three-way select, and the slot's membership
-# tests and updates along the diagonal, vertical and deletion moves).
+# int32 rate and its bytes (each input read once, each output written once)
+# over the 3.35 TB/s of HBM. The int32 rate is 64 lanes per SM x SMs x the
+# SM clock nvidia-smi reports x 2 operations per lane and clock: sm_90a's
+# three-input integer instructions (VIADDMNMX, max(a + b, c), and IADD3)
+# do two operations in one issue, and ptxas fuses the DP's adds and maxes
+# into them unasked, so one per clock would be no lower bound.
+# Operations per DP cell of the minimal recurrence, counted from the
+# kernels' code: K3 10 (substitution score 1, diagonal 1, V 3, Ht 1, F 3,
+# H 1); K1 20 (K3's 10, plus a three-way select of the start and NM
+# companions and NM's four updates); K2 20 + 36 per region slot (six
+# companions, each a three-way select, and the slot's membership tests and
+# updates along the diagonal, vertical and deletion moves).
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
+INT32_OPS_PER_LANE_CLOCK = 2
 
 
 def ops_per_cell(name: str, R: int = 0) -> int:
@@ -104,7 +118,8 @@ def card_clock_hz() -> float:
 
 def bound(ops: float, nbytes: float, clock_hz: float, sms: int):
     """(least ms for the work on this card, "operations" or "bytes")."""
-    t_ops = ops / (INT32_LANES_PER_SM * sms * clock_hz)
+    t_ops = ops / (INT32_LANES_PER_SM * INT32_OPS_PER_LANE_CLOCK * sms
+                   * clock_hz)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -283,18 +298,15 @@ def step_batch(device):
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def check_sw_fitting(dev) -> dict:
-    """Phase 6: K3 against its plain version at the main path's shapes and
-    on an edge batch."""
+def sw_main_pairs(dev) -> dict:
+    """K3's inputs at the main path's two shapes, on `dev`: bench.py's
+    kernel shape (B 2048, Lq 152, Lt 1024) and the pairs of phase 7's
+    window step (B 8192, Lq 128, Lt 256)."""
     import numpy as np
     import torch
 
-    from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
-    from lancet2_tpu_torch.ops.sw_cuda import fitting_scores
-    from lancet2_tpu_torch.ops.sw_dp import fitting_scores_torch
     from lancet2_tpu_torch.ops.window_step import window_pairs
 
-    kp = READ_TO_HAP_PARAMS.to(dev)
     rng = np.random.default_rng(0)  # bench.py bench_sw_kernel's inputs
     B, Lq, Lt = 2048, 152, 1024
     bench = (rng.integers(0, 4, (B, Lq)).astype(np.uint8),
@@ -302,14 +314,31 @@ def check_sw_fitting(dev) -> dict:
              rng.integers(0, 4, (B, Lt)).astype(np.uint8),
              np.full(B, Lt, np.int32))
     sb = step_batch(dev)
-    cases = {
+    return {
         "bench": [torch.from_numpy(a).to(dev) for a in bench],
         "window_step": list(window_pairs(
             sb["reads"], sb["read_lens"], sb["haps"], sb["hap_lens"],
             sb["read_offset"], STEP_MARGIN)),
-        "edge": [torch.from_numpy(a).to(dev)
-                 for a in sw_edge_pairs(500, 1000, 77, 203)],
     }
+
+
+def check_sw_fitting(dev) -> dict:
+    """Phase 6: K3 against its plain version at the main path's shapes and
+    on an edge batch."""
+    import torch
+
+    from lancet2_tpu_torch.ops import sw_cases, sw_cuda
+    from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
+    from lancet2_tpu_torch.ops.sw_cuda import fitting_scores
+    from lancet2_tpu_torch.ops.sw_dp import fitting_scores_torch
+
+    kp = READ_TO_HAP_PARAMS.to(dev)
+    cases = sw_main_pairs(dev)
+    cases["edge"] = [torch.from_numpy(a).to(dev)
+                     for a in sw_edge_pairs(500, 1000, 77, 203)]
+    for i, (name, (Bn, Lq, Lt)) in enumerate(SW_CASES.items()):
+        cases[name] = [torch.from_numpy(a).to(dev) for a in sw_cases.edge_pairs(
+            600 + i, Bn, Lq, Lt, rpls=(4, 5, sw_cuda.rows_per_lane(Lq)))]
     results = {}
     for name, (q, ql, t, tl) in cases.items():
         B, Lq = q.shape
@@ -328,10 +357,11 @@ def check_sw_fitting(dev) -> dict:
         err = max(int((k_s.long() - p_s.long()).abs().max()),
                   int((k_e.long() - p_e.long()).abs().max()))
         exact = torch.equal(k_s, p_s) and torch.equal(k_e, p_e)
-        ms = time_cuda(kernel, 5)
+        ms = time_cuda(kernel, 20)
         plain_ms = time_cuda(plain, 1)
         cells = dp_cells(ql.cpu().numpy(), tl.cpu().numpy(), Lq, Lt)
-        log(f"K3 {name} B={B} Lq={Lq} Lt={Lt}: exact={exact} "
+        log(f"K3 {name} B={B} Lq={Lq} Lt={Lt} rows_per_lane="
+            f"{sw_cuda.rows_per_lane(Lq)}: exact={exact} "
             f"max_abs_err={err} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
             f"kernel_gcups={cells / (ms * 1e6):.3f} cells={cells}")
         if not exact or err > TOLERANCE:
@@ -492,6 +522,14 @@ def main() -> int:
         log(f"phase 2: evidence DP R={R}: {resident.value / sms:.1f} resident "
             f"warps (pairs in flight) per SM of {sms}")
 
+    from lancet2_tpu_torch.ops import sw_cuda
+
+    for rpl in range(1, 9):
+        log(f"phase 2: K3 rows per lane {rpl}: "
+            f"{sw_cuda.warps_per_sm(rpl, False)} resident warps (pairs in "
+            f"flight) per SM in one stripe, "
+            f"{sw_cuda.warps_per_sm(rpl, True)} with several")
+
     # the repo's C++ (native/) is built at first use too: build it here, so
     # that phase 4 times the pipeline and not g++
     from lancet2_tpu_torch.base import native_core
@@ -559,7 +597,8 @@ def main() -> int:
 
     clock_hz = card_clock_hz()
     log(f"phase 9: bounds at {clock_hz / 1e6:.0f} MHz x {sms} SMs x "
-        f"{INT32_LANES_PER_SM} int32 lanes, {HBM_BYTES_PER_S / 1e12} TB/s")
+        f"{INT32_LANES_PER_SM} int32 lanes x {INT32_OPS_PER_LANE_CLOCK} "
+        f"operations, {HBM_BYTES_PER_S / 1e12} TB/s")
     kernels = []
     for name, R, replaces, launch_key in (
             ("span", 0, "lancet2_tpu/ops/evidence_pallas.py:514", "span"),

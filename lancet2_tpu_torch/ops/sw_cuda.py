@@ -11,7 +11,8 @@ one device:
 
 The Pallas kernel's shape contract (256-pair tiles, Lq % 8, Lt % 128,
 queries transposed to [Lq, B]) is not carried over: the kernel takes any
-shape.
+shape. It holds the substitution scores as signed bytes and refuses others
+(the launch returns an error, and the wrapper raises).
 """
 
 from __future__ import annotations
@@ -28,13 +29,40 @@ from lancet2_tpu_torch.ops.sw_dp import fitting_scores_torch
 
 @functools.cache
 def _kernel():
-    """The C entry point `l2t_sw_fitting`; it returns cudaGetLastError()
-    of the launch."""
-    fn = library().l2t_sw_fitting
+    """The C entry points: the launch `l2t_sw_fitting` (it returns
+    cudaGetLastError() of the launch) and the bytes of scratch it needs,
+    `l2t_sw_fitting_scratch_bytes(B, Lq, Lt)`."""
+    lib = library()
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = lib.l2t_sw_fitting
     fn.argtypes = [vp] * 4 + [ci] * 7 + [vp] * 4
     fn.restype = ci
-    return fn
+    scratch = lib.l2t_sw_fitting_scratch_bytes
+    scratch.argtypes = [ci] * 3
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
+
+
+def warps_per_sm(rpl: int, multi: bool) -> int:
+    """Resident warps (pairs in flight) per SM of the kernel at `rpl` query
+    rows per lane, single- or multi-stripe: the occupancy query."""
+    fn = library().l2t_sw_fitting_warps_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(rpl, int(multi), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed for rpl={rpl}: CUDA "
+                           f"error {err}")
+    return out.value
+
+
+def rows_per_lane(Lq: int) -> int:
+    """The kernel's query rows per lane for a launch at Lq."""
+    fn = library().l2t_sw_fitting_rpl_for
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(Lq)
 
 
 def _check(q, q_lens, t, t_lens):
@@ -75,15 +103,20 @@ def fitting_scores(q, q_lens, t, t_lens,
     t_end = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return score, t_end
-    # scratch and the inputs may be freed while the kernel runs: the caching
-    # allocator hands their memory out again only in this stream's order
-    scratch = torch.empty(2 * max(Lt, 1) * B, dtype=torch.int32, device=dev)
+    launch, scratch_bytes = _kernel()
+    # boundary rows, only for queries of more than one stripe; scratch and
+    # the inputs may be freed while the kernel runs: the caching allocator
+    # hands their memory out again only in this stream's order
+    nbytes = scratch_bytes(B, Lq, Lt)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(q.data_ptr(), q_lens.data_ptr(), t.data_ptr(),
-                        t_lens.data_ptr(), B, Lq, Lt, kp.match, kp.mismatch,
-                        kp.gap_open, kp.gap_extend, scratch.data_ptr(),
-                        score.data_ptr(), t_end.data_ptr(), stream)
+        err = launch(q.data_ptr(), q_lens.data_ptr(), t.data_ptr(),
+                     t_lens.data_ptr(), B, Lq, Lt, kp.match, kp.mismatch,
+                     kp.gap_open, kp.gap_extend,
+                     None if scratch is None else scratch.data_ptr(),
+                     score.data_ptr(), t_end.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fitting DP kernel launch failed: CUDA error {err}")
     LAUNCHES["sw_fitting"] += 1

@@ -20,6 +20,7 @@ from lancet2_tpu_torch.ops import sw_cuda
 from lancet2_tpu_torch.ops.evidence_cases import edge_pairs
 from lancet2_tpu_torch.ops.evidence_dp import R_MAX, evidence_dp_torch
 from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
+from lancet2_tpu_torch.ops.sw_cases import edge_pairs as sw_edge_pairs
 from lancet2_tpu_torch.ops.sw_dp import fitting_scores_torch
 
 
@@ -121,6 +122,31 @@ def test_sw_fitting_kernel_matches_plain_on_card():
     q_lens[:4] = (0, Lq + 1, -1, 3)
     t_lens[3:5] = (0, Lt + 9)
     args = [torch.from_numpy(a).to(dev) for a in (q, q_lens, t, t_lens)]
+    want = fitting_scores_torch(*args, kp)
+    before = ec.LAUNCHES["sw_fitting"]
+    got = sw_cuda.fitting_scores(*args, kp)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ec.LAUNCHES["sw_fitting"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(600, 152, 256), (300, 520, 300),
+                                   (128, 128, 2048)],
+                         ids=["edge", "long_query", "long_band"])
+def test_sw_fitting_kernel_matches_plain_on_edge_batch(shape):
+    """K3 on the edge batch of ops/sw_cases.py: q_len at the kernel's lane
+    and stripe boundaries (one stripe of 5 rows per lane at Lq 152, three
+    stripes at Lq 520), zero and out of range; t_len 0, 1, 31-33, Lt and
+    Lt+9; N bases, padding, tandem-repeat targets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    kp = READ_TO_HAP_PARAMS.to(dev)
+    B, Lq, Lt = shape
+    rpl = sw_cuda.rows_per_lane(Lq)
+    args = [torch.from_numpy(a).to(dev)
+            for a in sw_edge_pairs(800 + Lq, B, Lq, Lt, rpls=(4, 5, rpl))]
     want = fitting_scores_torch(*args, kp)
     before = ec.LAUNCHES["sw_fitting"]
     got = sw_cuda.fitting_scores(*args, kp)

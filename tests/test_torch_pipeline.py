@@ -61,20 +61,27 @@ def test_port_pipeline_matches_jax_batch_executor(fixture):
     tmp, fx = fixture
     common = ["pipeline", "-n", fx["normal"], "-t", fx["tumor"],
               "-r", fx["fasta"], "-T", "2"]
-    jax_vcf = str(tmp / "jax.vcf.gz")
-    assert jax_cli_main(common + ["-o", jax_vcf, "--executor", "batch"]) == 0
-
     port_vcf = str(tmp / "port.vcf.gz")
-    # two intra-op threads: the plain DP needs no more here, and the test
-    # shares the host's cores with the other test workers
+    # the port runs in a subprocess while the JAX reference runs here; two
+    # intra-op threads: the plain DP needs no more, and the test shares the
+    # host's cores with the other test workers
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-c", _RUN_PORT,
          json.dumps(common + ["-o", port_vcf, "--device", "cpu"])],
-        capture_output=True, text=True, env=env, cwd=str(tmp), timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    status = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert status == {"exit": 0, "loaded": []}, proc.stderr[-3000:]
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(tmp))
+    try:
+        jax_vcf = str(tmp / "jax.vcf.gz")
+        assert jax_cli_main(common + ["-o", jax_vcf, "--executor", "batch"]) == 0
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, stderr[-3000:]
+    status = json.loads(stdout.strip().splitlines()[-1])
+    assert status == {"exit": 0, "loaded": []}, stderr[-3000:]
 
     want, got = _records(jax_vcf), _records(port_vcf)
     assert want, "fixture must produce records"
