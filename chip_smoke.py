@@ -38,8 +38,17 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   8. the float64 DM PLs on the card against the host engine
      (caller/likelihood.py) on a sweep of K 2-4 and depths 0-3000: no
      mismatch allowed, as the batch executor's phase C relies on them;
-  9. the kernels' JSON line (each kernel's bound from this run's inputs),
-     the card line, and the result line last.
+  9. the threads executor on the card: with the evidence backend and -T =
+     host cores over the 1 Mb fixture (K1 and K2 must both launch;
+     windows/s and launches per window printed), its records byte-identical
+     to phase 4's (the batch executor's); the jax (dirs engine) and numpy
+     backends and the batch executor with --prep-mode threads on phase 5's
+     region, each byte-identical to phase 5's records, with times and peak
+     device memory; and the dirs engine's time and peak memory per 512-pair
+     chunk at Lq 160 and Lt 1024-2048;
+ 10. the kernels' JSON line (each kernel's bound from this run's inputs;
+     K1/K2 also carry their launches on phase 9's threads run), the card
+     line, and the result line last.
 
 Without a CUDA device it exits non-zero before printing any result. Inputs
 are made from seeds; the fixture is cached under .smoke_cache/ (gitignored).
@@ -74,6 +83,8 @@ TOLERANCE = 0  # the kernel must equal its plain version bit for bit
 STEP = dict(num_windows=16, reads_per_window=128, read_len=128, num_haps=4,
             hap_len=512, num_samples=2)
 STEP_MARGIN, STEP_REPS = 64, 5
+# phase 9: the dirs engine's chunk (pairs x query bucket) and target buckets
+DIRS_CHUNK, DIRS_LQ, DIRS_LTS = 512, 160, (1024, 1536, 2048)
 
 # The bound of a kernel: the larger of its int32 operations over the card's
 # int32 rate and its bytes (each input read once, each output written once)
@@ -477,16 +488,101 @@ def vcf_records(path: str) -> list[str]:
         return [l for l in fh.read().splitlines() if l and not l.startswith("#")]
 
 
-def run_port(fx: dict, out_vcf: str, device: str, region=None) -> dict:
+def run_port(fx: dict, out_vcf: str, device: str, region=None,
+             extra=()) -> dict:
     from lancet2_tpu_torch.cli.main import build_parser, run_pipeline
 
     argv = ["pipeline", "-n", fx["normal"], "-t", fx["tumor"],
             "-r", fx["fasta"], "-o", out_vcf, "--device", device,
-            "-T", str(os.cpu_count() or 4)]
+            "-T", str(os.cpu_count() or 4), *extra]
     if region:
         argv += ["-R", region]
     return run_pipeline(build_parser().parse_args(argv),
                         "chip_smoke " + " ".join(argv))
+
+
+def dirs_chunk(Lt: int):
+    """A dirs-engine chunk of the jax backend's shape: 512 reads of 150
+    bases (query bucket 160) cut from targets of Lt bases, 2% noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(Lt)
+    t = rng.integers(0, 4, (DIRS_CHUNK, Lt)).astype(np.uint8)
+    q = np.full((DIRS_CHUNK, DIRS_LQ), 5, np.uint8)
+    for b in range(DIRS_CHUNK):
+        off = int(rng.integers(0, Lt - 150))
+        q[b, :150] = np.where(rng.random(150) < 0.02,
+                              rng.integers(0, 4, 150), t[b, off:off + 150])
+    return (q, np.full(DIRS_CHUNK, 150, np.int64), t,
+            np.full(DIRS_CHUNK, Lt, np.int64))
+
+
+def run_threads(fx: dict, cache: str, recs_1mb: list, region5: str,
+                recs5: list) -> dict:
+    """Phase 9: the threads executor and the options that ride on it.
+    Returns the threads run's launch counts."""
+    import torch
+
+    from lancet2_tpu_torch.ops import _build
+    from lancet2_tpu_torch.ops.affine_dp import READ_TO_HAP
+    from lancet2_tpu_torch.ops.affine_dp_torch import align_dirs_torch
+
+    path = os.path.join(cache, "smoke_threads_evidence.vcf.gz")
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    st = run_port(fx, path, "cuda", None,
+                  ["--executor", "threads", "--aligner-backend", "evidence"])
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    got = vcf_records(path)
+    n = st["windows"]
+    log(f"phase 9: threads executor, evidence, cuda, -T "
+        f"{os.cpu_count()}: {n} windows in "
+        f"{st['runtime_s']:.2f} s = {st['windows_per_s']:.3f} windows/s; "
+        f"records {len(got)}; launches {json.dumps(launches)} = "
+        f"{launches['span'] / max(n, 1):.3f} span and "
+        f"{launches['evidence'] / max(n, 1):.3f} evidence per window; "
+        f"peak device memory {peak:.1f} MiB")
+    log("phase 9: threads stage profile (summed over workers) " + json.dumps(
+        {k: v["seconds"] for k, v in st["stage_profile"].items()}))
+    if n != 1249 or not got:
+        raise AssertionError(f"threads run: {n} windows, {len(got)} records")
+    if launches["span"] == 0 or launches["evidence"] == 0:
+        raise AssertionError(f"the threads executor did not launch both "
+                             f"kernels: {launches}")
+    if got != recs_1mb:
+        raise AssertionError("threads and batch records differ on the 1 Mb "
+                             "fixture")
+    log("phase 9: threads and batch (phase 4) records are byte-identical")
+
+    for what, extra in (
+            ("jax", ["--executor", "threads", "--aligner-backend", "jax"]),
+            ("numpy", ["--executor", "threads", "--aligner-backend", "numpy"]),
+            ("prep_threads", ["--prep-mode", "threads"])):
+        path = os.path.join(cache, f"smoke_region_{what}.vcf.gz")
+        torch.cuda.reset_peak_memory_stats()
+        rst = run_port(fx, path, "cuda", region5, extra)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        log(f"phase 9: {what} on {region5}: {rst['windows']} windows in "
+            f"{rst['runtime_s']:.2f} s; peak device memory {peak:.1f} MiB")
+        if vcf_records(path) != recs5:
+            raise AssertionError(f"{what}: records differ from phase 5's")
+    log("phase 9: jax, numpy and prep-threads records equal phase 5's")
+
+    for Lt in DIRS_LTS:
+        chunk = dirs_chunk(Lt)
+        align_dirs_torch(*chunk, READ_TO_HAP, device="cuda")  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        for _ in range(3):
+            align_dirs_torch(*chunk, READ_TO_HAP, device="cuda")
+        ms = (time.monotonic() - t0) / 3 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        log(f"phase 9: dirs engine chunk B={DIRS_CHUNK} Lq={DIRS_LQ} "
+            f"Lt={Lt} on cuda: {ms:.3f} ms per chunk (dirs copied to the "
+            f"host included); peak device memory {peak:.1f} MiB")
+    return launches
 
 
 def main() -> int:
@@ -594,9 +690,10 @@ def main() -> int:
     swres = check_sw_fitting(dev)
     step_res = run_window_step(dev)
     check_pls(dev)
+    thr_launches = run_threads(fx, cache, recs, region, got["cuda"])
 
     clock_hz = card_clock_hz()
-    log(f"phase 9: bounds at {clock_hz / 1e6:.0f} MHz x {sms} SMs x "
+    log(f"phase 10: bounds at {clock_hz / 1e6:.0f} MHz x {sms} SMs x "
         f"{INT32_LANES_PER_SM} int32 lanes x {INT32_OPS_PER_LANE_CLOCK} "
         f"operations, {HBM_BYTES_PER_S / 1e12} TB/s")
     kernels = []
@@ -613,6 +710,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "lancet2_tpu_torch/csrc/evidence_dp.cu",
             "replaces": replaces, "launches": launches[launch_key],
+            "launches_threads": thr_launches[launch_key],
             "max_abs_err": max(errs), "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
@@ -621,12 +719,12 @@ def main() -> int:
         name = "span" if R == 0 else "evidence"
         b_ms, b_by = bound(ops_per_cell(name, R) * v["cells"], v["bytes"],
                            clock_hz, sms)
-        log(f"phase 9: bound {what} R={R} Lt={Lt}: {b_ms:.4f} ms ({b_by}); "
+        log(f"phase 10: bound {what} R={R} Lt={Lt}: {b_ms:.4f} ms ({b_by}); "
             f"kernel {v['ms']:.3f} ms")
     for case, v in swres.items():
         b_ms, b_by = bound(ops_per_cell("sw_fitting") * v["cells"],
                            v["bytes"], clock_hz, sms)
-        log(f"phase 9: bound K3 {case}: {b_ms:.4f} ms ({b_by}); kernel "
+        log(f"phase 10: bound K3 {case}: {b_ms:.4f} ms ({b_by}); kernel "
             f"{v['ms']:.3f} ms")
     main = swres["window_step"]
     bound_ms, bound_by = bound(ops_per_cell("sw_fitting") * main["cells"],

@@ -1,28 +1,40 @@
 """Read -> haplotype allele assignment: the genotyper of the port.
 
-The host half is the JAX package's `caller/genotyper.py` as it is, with its
-JAX-only branches deleted: pair-index building (`build_pair_indices`),
-evidence assembly (`assemble_evidence_packed`) and the numpy CIGAR backend
-(`genotype` with backend 'numpy'). The JAX package's tuple-form evidence
-path, its XLA and Pallas engines, its mesh counters and its jitted aligner
-are not part of this module.
+The JAX package's `caller/genotyper.py` with its engines swapped for the
+port's and the TPU-only measures left out (mesh counters, descent taint and
+host rerun, pinned device shapes). Three backends, as in the JAX package:
 
-`TorchGenotyper` is the device half on one torch device, the indexed
-two-pass protocol (`begin_evidence_indexed` / `finish_evidence_indexed`):
+  numpy     the CIGAR-walk baseline: `align_batch_numpy` + traceback;
+  jax       the same walk over the bucketed dirs engine
+            (ops/affine_dp_torch.py, the port of ops/affine_dp_jax.py) on
+            the genotyper's torch device; the name is the JAX package's,
+            kept so that command lines carry over;
+  evidence  the traceback-free evidence DP, per window in tuple form
+            (`build_evidence_pairs` -> `run_evidence_pairs` ->
+            `assemble_evidence`), or across windows through the indexed
+            protocol of `TorchGenotyper`.
+
+`run_evidence_pairs` runs the plain version (ops/evidence_dp.py) in one pass
+on the CPU. On a CUDA device it runs the two-pass protocol through the
+kernel wrappers (ops/evidence_cuda.py), as `TorchGenotyper` does for the
+batch executor:
 
   pass 1  the span kernel (K1) over every (read x hap x region-chunk) pair;
   gate    score >= min_score_frac * read length, t_end > t_start, and the
-          span overlaps an active region;
-  crop    each survivor's target band is cut to its pass-1 span; regions
-          shift WITHOUT clamping, so starts can be negative;
+          span overlaps an active region (`pass2_survivors`, shared by
+          both routes);
   pass 2  the evidence kernel (K2) over the survivors, one launch class per
-          highest active region slot R in {1, 2, 4}.
+          highest active region slot R in {1, 2, 4} (`launch_class`).
 
-Launches are asynchronous: `begin` returns with pass 1 in flight and
-`finish` is where the host waits. The kernel is exact at every deletion
-distance, so there is no taint and no host rerun.
+The tuple form runs pass 2 on the survivors' full targets, so its outputs
+equal the one-pass CPU run on every field `assemble_evidence` reads. The
+indexed form crops each survivor's band to its pass-1 span first; regions
+shift WITHOUT clamping, so starts can be negative. Launches are
+asynchronous: `begin_evidence_indexed` returns with pass 1 in flight and
+`finish_evidence_indexed` is where the host waits. The kernel is exact at
+every deletion distance, so there is no taint and no host rerun.
 
-torch and the device ops are imported inside `TorchGenotyper`, as the JAX
+torch and the device ops are imported where an engine runs, as the JAX
 package imports its engines, and the pair layout comes from the torch-free
 ops/evidence_layout.py: the CLI and phase A (the prep coordinator and its
 fork workers) load no torch.
@@ -56,6 +68,28 @@ _TARGET_BUCKETS = (64, 128, 256, 384, 512, 768, 1024, 1280, 1536, 2048, 4096, 81
 _QUERY_BUCKETS = (160, 320, 640, 1280)
 
 PASS2_R = (1, 2, 4)  # evidence launch classes: highest active slot + 1
+# pairs per kernel launch of the tuple form on a CUDA device (the CPU runs
+# _PAIR_CHUNK, as the JAX package's host engine)
+_DEVICE_PAIR_CHUNK = 8192
+
+
+def pass2_survivors(score, t_start, t_end, regions, min_scores):
+    """The two-pass gate: pairs whose pass-1 span passes the mapability gate
+    (score >= min_score, t_end > t_start) and overlaps an active region.
+    Returns (their indices, their active-slot mask [m, R_MAX])."""
+    active = regions[:, :, 1] > regions[:, :, 0]
+    overlap = ((regions[:, :, 1] > t_start[:, None])
+               & (regions[:, :, 0] < t_end[:, None]) & active).any(axis=1)
+    needed = np.flatnonzero((score >= min_scores) & (t_end > t_start)
+                            & overlap)
+    return needed, active[needed]
+
+
+def launch_class(active):
+    """Pass-2 launch class R in PASS2_R per pair: the highest active slot,
+    not the count (band clipping can empty a leading slot)."""
+    return np.where(active[:, 2:].any(axis=1), 4,
+                    np.where(active[:, 1], 2, 1))
 
 
 def _bucket(n: int, buckets=(64, 128, 256, 512, 1024, 2048, 4096, 8192)) -> int:
@@ -79,13 +113,264 @@ def _pad(seqs: list[np.ndarray], width: int | None = None):
 
 
 class Genotyper:
-    """backend: 'numpy' (CIGAR traceback per pair, `genotype`) or 'evidence'
-    (the indexed protocol: `build_pair_indices` on the host, the DP on a
-    torch device through `TorchGenotyper`, `assemble_evidence_packed`)."""
+    """backend: 'numpy' (CIGAR traceback per pair), 'jax' (the same walk
+    over the bucketed dirs engine on `device`) or 'evidence' (the
+    traceback-free evidence DP on `device`: per window through `genotype`,
+    or across windows through `TorchGenotyper`).
 
-    def __init__(self, backend: str = "numpy", min_score_frac: float = 0.25):
+    `device` names a torch device ("cuda", "cuda:0", "cpu"); it is resolved
+    only when an engine runs, so that phase A, which builds pairs and never
+    touches the device, imports no torch."""
+
+    def __init__(self, backend: str = "numpy", min_score_frac: float = 0.25,
+                 device="cuda"):
         self.backend = backend
         self.min_score_frac = min_score_frac
+        self.device = device
+        # pairs seen / pairs sent to pass 2, summed over this genotyper's life
+        self.pass2_stats = {"total": 0, "pass2": 0}
+
+    # ------------------------------------------------------------------
+    # evidence-DP backend per window, in tuple form:
+    #   build_evidence_pairs -> run_evidence_pairs -> assemble_evidence
+    # ------------------------------------------------------------------
+    def build_evidence_pairs(self, hap_codes, reads, variants,
+                             anchor_pos1: int | None = None,
+                             band_margin: int | None = None,
+                             max_regions: int | None = None):
+        """Phase 1: enumerate (read, hap, region-chunk) pairs for one window.
+
+        With band_margin set (and anchor_pos1 giving the haplotypes' genomic
+        start), each pair's target is the haplotype BAND around the read's
+        mapped diagonal — read_len + 2*margin columns instead of the full
+        haplotype. Exact whenever the optimal path stays inside the band;
+        reads whose true alignment lies outside their band score low and hit
+        the mapability gate, mirroring minimap2's no-hit behavior
+        (reference: caller/genotyper.cpp:376-411 seeds per-haplotype indexes
+        for the same economy). Regions and t_start/t_end stay in band
+        coordinates — all downstream comparisons are relative.
+
+        Region chunks hold at most R_MAX variants on every device: the CUDA
+        kernel takes R up to R_MAX, so the TPU's groups of two are not
+        needed.
+        """
+        if max_regions is None:
+            max_regions = R_MAX
+        max_regions = min(max_regions, R_MAX)
+
+        n_haps = len(hap_codes)
+        # per-hap region chunks: (chunk_regions [R_MAX, 2], chunk_vis [R_MAX])
+        hap_chunks: list[list[tuple[np.ndarray, list[int]]]] = []
+        for h in range(n_haps):
+            carried = []
+            for vi, variant in enumerate(variants):
+                bounds = self._extract_hap_bounds(variant, h)
+                if bounds is not None:
+                    carried.append((vi, bounds[0], bounds[1], bounds[2]))
+            chunks = []
+            for off in range(0, max(len(carried), 1), max_regions):
+                group = carried[off : off + max_regions]
+                regions = np.zeros((R_MAX, 2), np.int32)
+                vis = []
+                for r, (vi, vs, vlen, allele) in enumerate(group):
+                    regions[r] = (vs, vs + vlen)
+                    vis.append((vi, allele))
+                chunks.append((regions, vis))
+            hap_chunks.append(chunks)
+
+        # build the pair list: (read, hap, chunk). All band gathers and
+        # region shifts are one vectorized op per (hap, chunk) over every
+        # read at once; the per-pair loop only appends precomputed row
+        # views, so values and pair order are those of the scalar form.
+        use_band = band_margin is not None and anchor_pos1 is not None
+        pair_q, pair_qu, pair_t, pair_meta = [], [], [], []
+        if not use_band:
+            for r, read in enumerate(reads):
+                for h in range(n_haps):
+                    hap = hap_codes[h]
+                    for ci, (regions, vis) in enumerate(hap_chunks[h]):
+                        pair_t.append(hap)
+                        pair_meta.append((r, h, regions, vis))
+                        pair_q.append(read.codes)
+                        pair_qu.append(read.qual)
+            return pair_q, pair_qu, pair_t, pair_meta
+
+        n_reads = len(reads)
+        ro = np.fromiter(
+            (rd.start0 + 1 - anchor_pos1 for rd in reads), np.int64, n_reads
+        )
+        bandw = np.fromiter((rd.length for rd in reads), np.int64, n_reads)
+        bandw += 2 * band_margin
+
+        # per hap: banded row + per-chunk shifted regions for each read whose
+        # band is narrower than the haplotype (others use the full hap)
+        per_hap: list[tuple[dict, list]] = []
+        for h in range(n_haps):
+            hap = hap_codes[h]
+            lh = len(hap)
+            sel = bandw < lh
+            band_rows: dict[int, np.ndarray] = {}
+            chunk_bregs: list[dict[int, np.ndarray]] = []
+            if sel.any():
+                idx_sel = np.nonzero(sel)[0]
+                bs = np.clip(ro[idx_sel] - band_margin, 0, lh - bandw[idx_sel])
+                bw_sel = bandw[idx_sel]
+                for bw in np.unique(bw_sel):
+                    grp = bw_sel == bw
+                    g_idx = idx_sel[grp]
+                    gathered = hap[
+                        bs[grp][:, None] + np.arange(int(bw))[None, :]
+                    ]
+                    for gi, r in enumerate(g_idx):
+                        band_rows[int(r)] = gathered[gi]
+                for regions, _vis in hap_chunks[h]:
+                    active = regions[:, 1] > regions[:, 0]
+                    breg = np.clip(
+                        regions[None, :, :] - bs[:, None, None],
+                        0,
+                        bw_sel[:, None, None],
+                    ).astype(np.int32)
+                    breg[:, ~active, :] = 0
+                    chunk_bregs.append(
+                        {int(r): breg[si] for si, r in enumerate(idx_sel)}
+                    )
+            else:
+                chunk_bregs = [{} for _ in hap_chunks[h]]
+            per_hap.append((band_rows, chunk_bregs))
+
+        for r, read in enumerate(reads):
+            codes, qual = read.codes, read.qual
+            for h in range(n_haps):
+                hap = hap_codes[h]
+                band_rows, chunk_bregs = per_hap[h]
+                row = band_rows.get(r)
+                for ci, (regions, vis) in enumerate(hap_chunks[h]):
+                    if row is not None:
+                        pair_t.append(row)
+                        pair_meta.append((r, h, chunk_bregs[ci][r], vis))
+                    else:
+                        pair_t.append(hap)
+                        pair_meta.append((r, h, regions, vis))
+                    pair_q.append(codes)
+                    pair_qu.append(qual)
+        return pair_q, pair_qu, pair_t, pair_meta
+
+    @staticmethod
+    def _chunk_inputs(pair_q, pair_qu, pair_t, pair_meta, lo, hi):
+        """Pad one pair chunk [lo, hi) to bucketed lengths. The pair count is
+        not padded: the JAX package pads it to reuse XLA executables, and
+        neither the plain version nor the kernel needs that."""
+        bq = _bucket(max(len(s) for s in pair_q[lo:hi]), _QUERY_BUCKETS)
+        bt = _bucket(max(len(s) for s in pair_t[lo:hi]), _TARGET_BUCKETS)
+        qs, qlens = _pad(pair_q[lo:hi], bq)
+        qus, _ = _pad(pair_qu[lo:hi], bq)
+        ts, tlens = _pad(pair_t[lo:hi], bt)
+        regions = np.zeros((hi - lo, R_MAX, 2), np.int32)
+        for b in range(hi - lo):
+            regions[b] = pair_meta[lo + b][2]
+        return qs, qus, qlens, ts, tlens, regions
+
+    def run_evidence_pairs(self, pair_q, pair_qu, pair_t, pair_meta):
+        """Phase 2: the evidence DP over the pair list, in chunks. One pass
+        of the plain version on the CPU; the two-pass kernel protocol on a
+        CUDA device (`_run_evidence_pairs_two_pass`); any other device
+        raises."""
+        import torch
+
+        dev = torch.device(self.device)
+        if dev.type == "cuda":
+            return self._run_evidence_pairs_two_pass(
+                pair_q, pair_qu, pair_t, pair_meta, dev)
+        if dev.type != "cpu":
+            raise ValueError(f"no evidence DP for device {dev}")
+        from lancet2_tpu_torch.ops.evidence_dp import evidence_dp
+
+        outs = {}
+        for lo in range(0, len(pair_q), _PAIR_CHUNK):
+            hi = min(lo + _PAIR_CHUNK, len(pair_q))
+            out = evidence_dp(*self._chunk_inputs(
+                pair_q, pair_qu, pair_t, pair_meta, lo, hi))
+            for key, arr in out.items():
+                outs.setdefault(key, []).append(arr)
+        return {k: np.concatenate(v) for k, v in outs.items()}
+
+    def _run_evidence_pairs_two_pass(self, pair_q, pair_qu, pair_t,
+                                     pair_meta, dev):
+        """Two-pass dispatch on `dev`, through the kernel wrappers: the
+        kernels on a CUDA device, their plain versions on CPU tensors (how
+        the tests hold this protocol on the CPU). Pass 1: K1 (score, t_end,
+        t_start, NM) over EVERY pair, all chunks launched before any is read
+        back. Pass 2: K2 over the survivors of `pass2_survivors` only, on
+        their full targets, by launch class. Excluded pairs' region outputs
+        are never read by assemble_evidence (their gate/overlap checks fail
+        identically), and a survivor's every output comes from K2, so the
+        result equals the one-pass CPU run on every field assembly reads.
+
+        Launches go to the current stream of the calling thread, which is
+        the device's default stream for every worker of the threads
+        executor: the wrappers free per-launch scratch while the kernel
+        runs, which is safe only in one stream's order."""
+        import torch
+
+        from lancet2_tpu_torch.ops.evidence_cuda import (
+            evidence_pairs_finalize,
+            evidence_pairs_submit,
+            span_pairs_finalize,
+            span_pairs_submit,
+        )
+        from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
+
+        kp = READ_TO_HAP_PARAMS.to(dev)
+
+        def put(a, dt):
+            return torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+
+        def launch(lists, R):
+            qs, qus, qlens, ts, tlens, regions = self._chunk_inputs(
+                *lists, 0, len(lists[0]))
+            q, ql = put(qs, np.uint8), put(qlens, np.int32)
+            t, tl = put(ts, np.uint8), put(tlens, np.int32)
+            if R == 0:
+                return span_pairs_submit(q, ql, t, tl, kp)
+            return evidence_pairs_submit(q, put(qus, np.uint8), ql, t, tl,
+                                         put(regions, np.int32), R, kp)
+
+        n = len(pair_q)
+        lists = (pair_q, pair_qu, pair_t, pair_meta)
+        chunk = _DEVICE_PAIR_CHUNK
+        pend = []
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            pend.append((launch([x[lo:hi] for x in lists], 0), lo, hi))
+        outs = {k: np.zeros(n, np.int64) for k in SPAN_KEYS}
+        for iout, lo, hi in pend:
+            span = span_pairs_finalize(iout)
+            for k in outs:
+                outs[k][lo:hi] = span[k]
+        for k, fill in REGION_FILL.items():
+            dt = np.float64 if isinstance(fill, float) else np.int64
+            outs[k] = np.full((n, R_MAX), fill, dt)
+
+        regions = np.stack([m[2] for m in pair_meta]).astype(np.int32)
+        q_lens = np.fromiter((len(q) for q in pair_q), np.int64, n)
+        min_scores = (self.min_score_frac * q_lens).astype(np.int64)
+        needed, active = pass2_survivors(outs["score"], outs["t_start"],
+                                         outs["t_end"], regions, min_scores)
+        self.pass2_stats["total"] += n
+        self.pass2_stats["pass2"] += int(needed.size)
+        r_need = launch_class(active)
+        pend = []
+        for R in PASS2_R:
+            sel = needed[r_need == R]
+            for lo in range(0, sel.size, chunk):
+                idx = sel[lo:lo + chunk]
+                pend.append((launch([[x[i] for i in idx] for x in lists], R),
+                             idx, R))
+        for (iout, fout), idx, R in pend:
+            sub = evidence_pairs_finalize(iout, fout, R)
+            for k in outs:
+                outs[k][idx] = sub[k]
+        return outs
 
     def build_pair_indices(self, hap_lens, reads, variants,
                            anchor_pos1: int, band_margin: int,
@@ -313,6 +598,95 @@ class Genotyper:
                 )
         return result
 
+    def assemble_evidence(self, reads, variants, pair_meta, outs):
+        """Phase 3: per-read allele assignment + VariantSupport assembly."""
+        # per-read assembly (mirrors the CIGAR-walk backend's logic)
+        result: dict[int, dict[str, VariantSupport]] = {}
+        idx_of: dict[tuple[int, int, int], int] = {}
+        for idx, (r, h, _reg, _vis) in enumerate(pair_meta):
+            idx_of.setdefault((r, h), idx)  # first chunk holds the aln stats
+
+        pair_index = 0
+        per_read_pairs: dict[int, list[int]] = {}
+        for idx, (r, h, _reg, _vis) in enumerate(pair_meta):
+            per_read_pairs.setdefault(r, []).append(idx)
+
+        for r, read in enumerate(reads):
+            min_score = int(self.min_score_frac * read.length)
+            read_pairs = per_read_pairs.get(r, [])
+            # ref-hap NM baseline
+            ref_idx = idx_of.get((r, REF_HAP_IDX))
+            if (ref_idx is not None and outs["score"][ref_idx] >= min_score
+                    and outs["t_end"][ref_idx] > outs["t_start"][ref_idx]):
+                baseline_ref_nm = int(outs["nm"][ref_idx])
+            else:
+                baseline_ref_nm = read.length
+
+            assignments: dict[int, ReadAlleleAssignment] = {}
+            for idx in read_pairs:
+                _r, h, regions, vis = pair_meta[idx]
+                score = int(outs["score"][idx])
+                t_start = int(outs["t_start"][idx])
+                t_end = int(outs["t_end"][idx])
+                if score < min_score or t_end <= t_start:
+                    continue
+                for slot, (vi, allele_idx) in enumerate(vis):
+                    vs, ve = int(regions[slot, 0]), int(regions[slot, 1])
+                    if not (ve > t_start and vs < t_end):
+                        continue
+                    aligned = int(outs["aligned"][idx, slot])
+                    matches = float(outs["matches"][idx, slot])
+                    identity = matches / aligned if aligned > 0 else 0.0
+                    raw = float(outs["raw"][idx, slot])
+                    pbq = float(outs["pbq"][idx, slot])
+                    min_bq = int(outs["min_bq"][idx, slot])
+                    qv = max(0, int(outs["qv"][idx, slot]))
+                    scored = ReadAlleleAssignment()
+                    scored.allele = allele_idx
+                    scored.global_score = int(float(score) - raw)
+                    scored.local_score = pbq
+                    scored.local_identity = identity
+                    scored.base_qual_at_var = 0 if min_bq == 255 else min_bq
+                    scored.assigned_haplotype_id = h
+                    scored.own_hap_nm = int(outs["nm"][idx])
+                    scored.ref_nm = baseline_ref_nm
+                    rel = qv / read.length if read.length > 0 else 0.5
+                    scored.folded_read_pos = min(rel, 1.0 - rel)
+                    prev = assignments.get(vi)
+                    if prev is None or scored.combined_score > prev.combined_score:
+                        assignments[vi] = scored
+
+            strand = STRAND_REV if read.is_reverse else STRAND_FWD
+            for vi, scored in assignments.items():
+                supports = result.setdefault(vi, {})
+                support = supports.setdefault(read.sample_name, VariantSupport())
+                support.add_evidence(
+                    ReadEvidence(
+                        insert_size=read.insert_size,
+                        alignment_start=read.start0,
+                        aln_score=scored.combined_score,
+                        folded_read_pos=scored.folded_read_pos,
+                        rname_hash=read.qname_hash & 0xFFFFFFFF,
+                        ref_nm=scored.ref_nm,
+                        own_hap_nm=scored.own_hap_nm,
+                        assigned_haplotype_id=scored.assigned_haplotype_id,
+                        allele=scored.allele,
+                        strand=strand,
+                        base_qual=scored.base_qual_at_var,
+                        map_qual=read.mapq,
+                        is_soft_clipped=read.is_soft_clipped,
+                        is_proper_pair=read.is_proper_pair,
+                    )
+                )
+        return result
+
+    def _genotype_evidence(self, hap_codes, hap_seqs, reads, variants, quals_list):
+        pair_q, pair_qu, pair_t, pair_meta = self.build_evidence_pairs(
+            hap_codes, reads, variants
+        )
+        outs = self.run_evidence_pairs(pair_q, pair_qu, pair_t, pair_meta)
+        return self.assemble_evidence(reads, variants, pair_meta, outs)
+
     def _align_all(self, hap_codes: list[np.ndarray], reads: list[Read],
                    variants: list[RawVariant] | None = None):
         """Batched alignment of every (read, hap) pair; returns nested dict
@@ -331,9 +705,29 @@ class Genotyper:
         results: list[dict] = []
         for lo in range(0, len(pair_q), _PAIR_CHUNK):
             hi = min(lo + _PAIR_CHUNK, len(pair_q))
-            qs, qlens = _pad(pair_q[lo:hi])
-            ts, tlens = _pad(pair_t[lo:hi])
-            out = align_batch_numpy(qs, qlens, ts, tlens, READ_TO_HAP)
+            if self.backend == "jax":
+                # the JAX package buckets every dimension so its jitted
+                # executable is reused across windows (pair count, read
+                # length, haplotype length); the same buckets here
+                from lancet2_tpu_torch.ops.affine_dp_torch import (
+                    align_dirs_torch,
+                )
+
+                n_pairs = hi - lo
+                bq = _bucket(max(len(s) for s in pair_q[lo:hi]), _QUERY_BUCKETS)
+                bt = _bucket(max(len(s) for s in pair_t[lo:hi]), _TARGET_BUCKETS)
+                bb = _bucket(n_pairs, (64, 128, 256, 512))
+                qs, qlens = _pad(pair_q[lo:hi] + [pair_q[lo]] * (bb - n_pairs), bq)
+                ts, tlens = _pad(pair_t[lo:hi] + [pair_t[lo]] * (bb - n_pairs), bt)
+                score, t_end, dirs = align_dirs_torch(
+                    qs, qlens, ts, tlens, READ_TO_HAP, device=self.device)
+                out = {"score": score[:n_pairs], "t_end": t_end[:n_pairs],
+                       "dirs": dirs[:n_pairs]}
+                qlens = qlens[:n_pairs]
+            else:
+                qs, qlens = _pad(pair_q[lo:hi])
+                ts, tlens = _pad(pair_t[lo:hi])
+                out = align_batch_numpy(qs, qlens, ts, tlens, READ_TO_HAP)
             cigars = traceback_batch(
                 np.asarray(out["dirs"]), qlens, np.asarray(out["t_end"], dtype=np.int64), READ_TO_HAP
             )
@@ -385,12 +779,11 @@ class Genotyper:
         """Returns {variant_index: {sample_name: VariantSupport}}."""
         if not variants or not reads:
             return {}
-        if self.backend != "numpy":
-            raise NotImplementedError(
-                f"backend {self.backend!r}: the port genotypes per window "
-                "with the numpy backend only; the evidence backend runs "
-                "through the batch executor (TorchGenotyper)")
         hap_codes = [encode(h) for h in hap_seqs]
+        if self.backend == "evidence":
+            return self._genotype_evidence(
+                hap_codes, hap_seqs, reads, variants, [r.qual for r in reads]
+            )
         alns = self._align_all(hap_codes, reads, variants)
 
         result: dict[int, dict[str, VariantSupport]] = {}
@@ -455,16 +848,17 @@ class Genotyper:
 
 
 class TorchGenotyper(Genotyper):
+    """The batch executor's device half: the indexed two-pass protocol on
+    one torch device."""
+
     def __init__(self, device, min_score_frac: float = 0.25):
         import torch
 
         from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
 
-        super().__init__(backend="evidence", min_score_frac=min_score_frac)
-        self.device = torch.device(device)
+        super().__init__(backend="evidence", min_score_frac=min_score_frac,
+                         device=torch.device(device))
         self.kp = READ_TO_HAP_PARAMS.to(self.device)
-        # pairs seen / pairs sent to pass 2, summed over this genotyper's life
-        self.pass2_stats = {"total": 0, "pass2": 0}
 
     def run_evidence_indexed(self, pools: dict, pairs: dict,
                              pair_chunk: int | None = None):
@@ -531,24 +925,17 @@ class TorchGenotyper(Genotyper):
             outs[k] = np.full((n, R_MAX), fill, dt)
         score, t_start, t_end = outs["score"], outs["t_start"], outs["t_end"]
 
-        active = regions[:, :, 1] > regions[:, :, 0]
-        overlap = ((regions[:, :, 1] > t_start[:, None])
-                   & (regions[:, :, 0] < t_end[:, None]) & active).any(axis=1)
         min_scores = (self.min_score_frac
                       * dev.read_lens_host[read_ix].astype(np.int64)
                       ).astype(np.int64)
-        needed = np.flatnonzero((score >= min_scores) & (t_end > t_start)
-                                & overlap)
+        needed, active = pass2_survivors(score, t_start, t_end, regions,
+                                         min_scores)
         self.pass2_stats["total"] += n
         self.pass2_stats["pass2"] += int(needed.size)
         if not needed.size:
             return outs
 
-        # launch class: the highest active slot, not the count (band
-        # clipping can empty a leading slot)
-        act = active[needed]
-        r_need = np.where(act[:, 2:].any(axis=1), 4,
-                          np.where(act[:, 1], 2, 1))
+        r_need = launch_class(active)
         c_off = t_start[needed]
         c_len = t_end[needed] - c_off
         pend = []

@@ -1,10 +1,12 @@
 """CLI: `python -m lancet2_tpu_torch pipeline ...` on a torch device.
 
 The JAX package's CLI (`lancet2_tpu/cli/main.py`) with its flag surface,
-without the jax configuration block. The port runs the batch executor only;
-`--device` takes {cpu, cuda} (default cuda). An option the port does not
-support yet raises a clear error instead of being ignored. `index` and
-`cram` run through the port's own hts modules.
+without the jax configuration block. `--device` takes {cpu, cuda}. The
+port's defaults are `--device cuda --executor batch --aligner-backend
+evidence` (the JAX package's: cpu, threads, jax); the threads executor runs
+with every backend. An option the port does not support yet
+(`--graph-backend device`) raises a clear error instead of being ignored.
+`index` and `cram` run through the port's own hts modules.
 
 This module does not import torch at import time: the prep coordinator is
 spawned, and a spawned process re-imports the main module.
@@ -96,20 +98,29 @@ def build_parser() -> argparse.ArgumentParser:
                          "merge_vcf_shards)")
     pl.add_argument("--aligner-backend", choices=["numpy", "jax", "evidence"],
                     default="evidence",
-                    help="evidence (the only one ported): traceback-free "
-                         "device formulation, what --executor batch uses")
+                    help="evidence (default): traceback-free evidence DP, the "
+                         "hand-written kernels on cuda (what --executor batch "
+                         "uses); jax: the bucketed dirs engine "
+                         "(ops/affine_dp_torch.py, plain PyTorch on --device; "
+                         "the JAX package's name, record-identical) and a "
+                         "host CIGAR traceback; numpy: reference-parity "
+                         "baseline on the host")
     pl.add_argument("--executor", choices=["threads", "batch"], default="batch",
-                    help="batch (the only one ported) = two-phase executor "
-                         "with fused cross-window evidence-DP dispatches")
+                    help="batch (default) = two-phase executor with fused "
+                         "cross-window evidence-DP dispatches (implies the "
+                         "evidence backend); threads = each worker thread "
+                         "genotypes one window at a time")
     pl.add_argument("--prep-mode", choices=["auto", "processes", "threads"],
                     default="auto",
                     help="batch-executor phase-A workers: fork processes "
                          "(GIL-free scaling, default on posix) or threads "
                          "(byte-identical results either way)")
     pl.add_argument("--device", choices=["cpu", "cuda"], default="cuda",
-                    help="where the evidence DP runs: cuda launches the "
-                         "hand-written kernels on the current CUDA device; "
-                         "cpu runs their plain PyTorch versions")
+                    help="where the genotyper's engine runs: cuda launches "
+                         "the hand-written kernels on the current CUDA "
+                         "device; cpu runs their plain PyTorch versions "
+                         "(pair best with --executor batch so launches are "
+                         "large and fused)")
 
     # graph params
     pl.add_argument("--graph-backend",
@@ -169,27 +180,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _reject_unsupported(args) -> None:
-    unsupported = []
-    if args.executor != "batch":
-        unsupported.append("--executor threads (the port runs the batch "
-                           "executor only)")
-    if args.aligner_backend != "evidence":
-        unsupported.append(f"--aligner-backend {args.aligner_backend} (the "
-                           "batch executor uses the evidence DP)")
-    if args.prep_mode == "threads":
-        unsupported.append("--prep-mode threads")
     if args.graph_backend == "device":
-        unsupported.append("--graph-backend device (the XLA graph build is "
-                           "not ported)")
-    if args.probe_variants or args.probe_results:
-        unsupported.append("--probe-variants/--probe-results")
-    if args.out_graphs_tgz:
-        unsupported.append("--out-graphs-tgz")
-    if args.append_history:
-        unsupported.append("--append-history")
-    if unsupported:
         raise SystemExit("not supported by lancet2_tpu_torch yet: "
-                         + "; ".join(unsupported))
+                         "--graph-backend device (the XLA graph build is "
+                         "not ported)")
 
 
 def run_pipeline(args, command_line: str) -> dict:
@@ -208,6 +202,14 @@ def run_pipeline(args, command_line: str) -> dict:
     import faulthandler
 
     faulthandler.enable(all_threads=True)
+
+    if args.executor == "batch":
+        args.aligner_backend = "evidence"
+    elif args.device == "cuda" and args.aligner_backend != "numpy":
+        LOG.warning(
+            "--device cuda with --executor threads dispatches per-window; "
+            "use --executor batch for fused device batches"
+        )
 
     if not args.normal and not args.tumor and not args.sample:
         raise SystemExit("at least one of --normal/--tumor/--sample is required")
@@ -332,6 +334,11 @@ def run_pipeline(args, command_line: str) -> dict:
         snapshot_mode=args.graph_snapshots,
         build_backend=args.graph_backend,
     )
+    shards_dir = None
+    if args.out_graphs_tgz:
+        import tempfile
+
+        shards_dir = tempfile.mkdtemp(prefix="lancet2_graph_shards_")
     params = BuilderParams(
         graph=graph_params,
         collector=CollectorParams(
@@ -341,28 +348,56 @@ def run_pipeline(args, command_line: str) -> dict:
         ),
         skip_active_region=skip_active,
         gc_fraction=args.genome_gc_bias,
-        aligner_backend="evidence",
-        graphs_shards_dir=None,
+        aligner_backend=args.aligner_backend,
+        graphs_shards_dir=shards_dir,
+        device=args.device,
     )
+
+    probe_factory = None
+    probe_writer = None
+    if args.probe_variants:
+        from lancet2_tpu_torch.utils.probe import (
+            ProbeIndex,
+            ProbeResultsWriter,
+            ProbeTracker,
+        )
+
+        probe_index = ProbeIndex.from_file(args.probe_variants, graph_params, ref)
+        probe_writer = ProbeResultsWriter(
+            args.probe_results or args.probe_variants + ".probe.tsv")
+        probe_factory = lambda wid: ProbeTracker(probe_index, probe_writer)
 
     case_ctrl = (any(s.tag == 4 for s in samples)
                  and any(s.tag == 2 for s in samples))
     header = build_vcf_header(ref, [s.sample_name for s in samples],
                               command_line, case_ctrl)
 
-    import torch
+    if args.executor == "batch":
+        from lancet2_tpu_torch.core.batch_pipeline import (
+            TorchBatchPipelineExecutor,
+        )
 
-    from lancet2_tpu_torch.core.batch_pipeline import TorchBatchPipelineExecutor
+        executor = TorchBatchPipelineExecutor(
+            params, ref, samples, windows, num_workers=args.num_threads,
+            pair_chunk=PAIR_CHUNK,
+            checkpoint=ckpt,
+            min_emit_pos=min_emit_pos,
+            total_hint=expected_windows if stream_windows else None,
+            prep_mode=args.prep_mode,
+            device=args.device,
+        )
+    else:
+        from lancet2_tpu_torch.core.pipeline import PipelineExecutor
 
-    executor = TorchBatchPipelineExecutor(
-        params, ref, samples, windows, num_workers=args.num_threads,
-        pair_chunk=PAIR_CHUNK,
-        checkpoint=ckpt,
-        min_emit_pos=min_emit_pos,
-        total_hint=expected_windows if stream_windows else None,
-        prep_mode=args.prep_mode,
-        device=torch.device(args.device),
-    )
+        executor = PipelineExecutor(
+            params, ref, samples, windows,
+            num_workers=args.num_threads,
+            probe_tracker_factory=probe_factory,
+            checkpoint=ckpt,
+            min_emit_pos=min_emit_pos,
+            total_hint=expected_windows if stream_windows else None,
+            device=args.device,
+        )
 
     out = BgzfWriter(args.out_vcfgz)
     try:
@@ -377,6 +412,18 @@ def run_pipeline(args, command_line: str) -> dict:
         stats = executor.execute(_TextShim())
     finally:
         out.close()
+        if probe_writer is not None:
+            probe_writer.close()
+
+    if args.out_graphs_tgz and not getattr(executor, "shard_paths", None):
+        LOG.warning("--out-graphs-tgz: no graph shards produced "
+                    "(the batch executor does not emit graph snapshots)")
+    if args.out_graphs_tgz and getattr(executor, "shard_paths", None):
+        from lancet2_tpu_torch.utils.targz import merge_shards
+
+        n_entries = merge_shards(executor.shard_paths, args.out_graphs_tgz)
+        LOG.info("merged %d graph snapshots into %s", n_entries,
+                 args.out_graphs_tgz)
 
     if ckpt is not None:
         ckpt.clear()  # run completed; the VCF is whole
@@ -387,6 +434,17 @@ def run_pipeline(args, command_line: str) -> dict:
              peak_rss_mb, stats.get("status_counts"))
     stats["total_runtime_s"] = runtime
     stats["peak_rss_mb"] = peak_rss_mb
+    if args.append_history:
+        from lancet2_tpu_torch.utils.profiling import append_history
+
+        append_history({
+            "kind": "pipeline",
+            "executor": args.executor,
+            "backend": args.aligner_backend,
+            "device": args.device,
+            "num_threads": args.num_threads,
+            **stats,
+        })
     return stats
 
 

@@ -2,11 +2,13 @@
 cross-window evidence DP.
 
 The JAX package's `core/batch_pipeline.py` with its JAX-only branches deleted
-(no `jax.devices()`, no mesh, no threads fallback for phase A): one explicit
-`torch.device` and the port's `TorchGenotyper`.
+(no `jax.devices()`, no mesh): one explicit `torch.device` and the port's
+`TorchGenotyper`.
 
-  phase A  prep coordinator and fork workers (core/prep_worker.py) run the
-           CPU layout on every device (max_regions = R_MAX, lt buckets
+  phase A  prep coordinator and fork workers (core/prep_worker.py), or with
+           prep_mode 'threads' (also 'auto' on a host without fork) the
+           same prepare+pack function in threads of this process; both run
+           the CPU layout on every device (max_regions = R_MAX, lt buckets
            _TARGET_BUCKETS, lq buckets _QUERY_BUCKETS), so payloads equal the
            JAX batch executor's on the CPU
   phase B  per window batch: pools uploaded, pass-1 span launched (async);
@@ -16,12 +18,14 @@ The JAX package's `core/batch_pipeline.py` with its JAX-only branches deleted
            flush
 
 No CUDA call happens before the prep workers start: the coordinator is
-spawned, and it forks the workers.
+spawned, and it forks the workers. Prep threads fork nothing and never touch
+the device.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import threading
 import time
 from collections import deque
@@ -39,8 +43,13 @@ from lancet2_tpu_torch.core.prep_worker import (
     PackedWindow,
     coordinator_main,
     map_pair_arrays,
+    prepare_and_pack,
 )
-from lancet2_tpu_torch.core.variant_builder import BuilderParams, StatusCode
+from lancet2_tpu_torch.core.variant_builder import (
+    BuilderParams,
+    StatusCode,
+    VariantBuilder,
+)
 from lancet2_tpu_torch.core.variant_store import VariantStore
 from lancet2_tpu_torch.ops.evidence_layout import R_MAX
 from lancet2_tpu_torch.ops.genotype import batched_genotype_pls_exact
@@ -84,12 +93,6 @@ class TorchBatchPipelineExecutor:
         total_hint: int | None = None,
         prep_mode: str = "auto",
     ):
-        if prep_mode == "threads":
-            raise ValueError("the port runs phase A in prep processes only "
-                             "(--prep-mode threads is not supported)")
-        if not (hasattr(os, "fork") and os.name == "posix"):
-            raise RuntimeError("phase A forks its prep workers: needs a "
-                               "posix host")
         self.device = torch.device(device)
         self.genotyper: TorchGenotyper | None = None
         self.params = params
@@ -111,7 +114,11 @@ class TorchBatchPipelineExecutor:
         )
         self.status_counts: dict[StatusCode, int] = {}
         self.stage_timer = StageTimer()
+        # prep backend: 'processes' (fork, default on posix), 'threads'
+        self.prep_mode = prep_mode
+        self._reader_pool: dict = {}
         self._procs: list = []
+        self._threads: list = []
         self._work_q = None
         self._result_q = None
         # results land here via a dedicated drain thread: worker->parent
@@ -126,13 +133,24 @@ class TorchBatchPipelineExecutor:
         self._drain_error = None
 
     # ------------------------------------------------------------------
-    # phase A: one spawned coordinator that forks the prep workers
+    # phase A: one spawned coordinator that forks the prep workers, or
+    # threads of this process
     # ------------------------------------------------------------------
+    def _use_processes(self) -> bool:
+        if self.prep_mode == "threads":
+            return False
+        if self.prep_mode == "processes":
+            return True
+        return hasattr(os, "fork") and os.name == "posix"
+
     def _start_prep_workers(self, max_regions, lq_buckets, lt_buckets):
         import multiprocessing as mp
 
         n = max(1, min(self.num_workers, os.cpu_count() or self.num_workers))
         self._n_prep_workers = n
+        if not self._use_processes():
+            self._start_prep_threads(n, max_regions, lq_buckets, lt_buckets)
+            return
         # SPAWN one clean coordinator (this process will hold the CUDA
         # context, which a forked child cannot use); the coordinator decodes
         # inputs once, then forks the N workers, which inherit the pools
@@ -152,18 +170,70 @@ class TorchBatchPipelineExecutor:
         self._start_drain_thread()
         LOG.info("prep: spawned coordinator + %d fork worker(s)", n)
 
+    def _start_prep_threads(self, n, max_regions, lq_buckets, lt_buckets):
+        """The threads fallback: same protocol, same packed payloads. The
+        inputs are decoded and indexed, and the native assembly core built,
+        once before the threads start, as the coordinator does before it
+        forks (the JAX package's threads each decode every input while the
+        pool is still empty)."""
+        import copy
+
+        from lancet2_tpu_torch.base import native_core
+        from lancet2_tpu_torch.caller.genotyper import Genotyper
+        from lancet2_tpu_torch.core.prep_worker import warm_readers
+
+        warm_readers(self.samples, self.params, self._reader_pool,
+                     need_event_index=not self.params.skip_active_region)
+        native_core.available()
+        self._work_q = queue.Queue()
+        self._result_q = queue.Queue()
+
+        def thread_main():
+            samples = [copy.copy(s) for s in self.samples]
+            builder = VariantBuilder(self.params, self.ref, samples,
+                                     reader_pool=self._reader_pool)
+            genotyper = Genotyper(backend="evidence")
+            while True:
+                item = self._work_q.get()
+                if item is None:
+                    return
+                seq, window = item
+                try:
+                    payload = prepare_and_pack(
+                        builder, genotyper, window, self.band_margin,
+                        max_regions, lt_buckets, lq_buckets,
+                    )
+                    self._result_q.put((seq, "ok", payload))
+                except Exception as exc:
+                    import traceback
+
+                    self._result_q.put(
+                        (seq, "error", (repr(exc), traceback.format_exc()))
+                    )
+
+        for _ in range(n):
+            t = threading.Thread(target=thread_main, daemon=True)
+            t.start()
+            self._threads.append(t)
+        self._start_drain_thread()
+        LOG.info("prep: %d worker thread(s)", n)
+
     def _stop_prep_workers(self):
         if self._work_q is None:
             return
         # one sentinel per worker (the coordinator exits when its forked
-        # workers do)
-        for _ in range(getattr(self, "_n_prep_workers", 1)):
+        # workers do; threads consume their own)
+        for _ in range(max(len(self._threads),
+                           getattr(self, "_n_prep_workers", 1))):
             self._work_q.put(None)
+        for t in self._threads:
+            t.join(timeout=30)
         for p in self._procs:
             p.join(timeout=30)
             if p.is_alive():
                 p.terminate()
         self._procs = []
+        self._threads = []
         if self._drain_thread is not None:
             self._result_q.put(self._DRAIN_STOP)
             self._drain_thread.join(timeout=30)

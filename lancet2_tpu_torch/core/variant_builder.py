@@ -47,6 +47,9 @@ class BuilderParams:
     gc_fraction: float = 0.41
     aligner_backend: str = "numpy"
     graphs_shards_dir: str | None = None  # per-worker graph snapshot shards
+    # torch device of the genotyper's engines (jax, evidence), by name: the
+    # params cross into the spawned prep coordinator, which loads no torch
+    device: str = "cuda"
 
 
 @dataclass
@@ -75,7 +78,8 @@ class VariantBuilder:
                            shard_writer=shard_writer)
         self.collector = ReadCollector(params.collector, samples,
                                        reader_pool=reader_pool)
-        self.genotyper = Genotyper(backend=params.aligner_backend)
+        self.genotyper = Genotyper(backend=params.aligner_backend,
+                                   device=params.device)
         self.seq_cx_scorer = SequenceComplexityScorer(params.gc_fraction)
         self.current_code = StatusCode.UNKNOWN
         self.probe_tracker = probe_tracker

@@ -162,10 +162,19 @@ class LazyTags:
         self._dict: dict[str, object] | None = None
 
     def _materialize(self) -> dict[str, object]:
-        if self._dict is None:
-            self._dict = _parse_aux(self._raw)
-            self._raw = b""
-        return self._dict
+        # records are cached and shared by the threads executor's workers:
+        # _dict is published before _raw is cleared, so a thread that reads
+        # an emptied _raw finds _dict set when it looks again (the JAX
+        # package's copy can parse b"" and publish empty tags)
+        d = self._dict
+        if d is None:
+            raw = self._raw
+            d = self._dict
+            if d is None:
+                d = _parse_aux(raw)
+                self._dict = d
+                self._raw = b""
+        return d
 
     def get(self, key, default=None):
         return self._materialize().get(key, default)

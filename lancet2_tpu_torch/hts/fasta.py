@@ -12,6 +12,7 @@ Reads/writes standard `.fai` indexes so fixtures interoperate with samtools.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass, field
 
 from lancet2_tpu_torch.hts.uri import hts_open
@@ -45,6 +46,7 @@ class Reference:
                 self._by_name[name] = info
         self._fh = hts_open(path, "rb")
         self._fh_pid = os.getpid()
+        self._lock = threading.Lock()
 
     def _file(self):
         """Fork-safe handle: a forked child shares the parent's seek offset
@@ -52,6 +54,7 @@ class Reference:
         if os.getpid() != self._fh_pid:
             self._fh = hts_open(self.path, "rb")
             self._fh_pid = os.getpid()
+            self._lock = threading.Lock()
         return self._fh
 
     def list_chroms(self) -> list[ChromInfo]:
@@ -74,8 +77,12 @@ class Reference:
         first = info.offset + (start0 // info.line_bases) * info.line_width + start0 % info.line_bases
         last = info.offset + ((end0 - 1) // info.line_bases) * info.line_width + (end0 - 1) % info.line_bases
         fh = self._file()
-        fh.seek(first)
-        raw = fh.read(last - first + 1)
+        # one seek offset per handle: the threads executor's workers share
+        # this reader, and a seek of one between another's seek and read
+        # would hand it the wrong bases (the JAX package's copy has no lock)
+        with self._lock:
+            fh.seek(first)
+            raw = fh.read(last - first + 1)
         return raw.replace(b"\n", b"").replace(b"\r", b"").decode("ascii").upper()
 
     def make_region(self, chrom: str, start1: int, end1: int) -> "Region":

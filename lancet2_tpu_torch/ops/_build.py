@@ -32,13 +32,21 @@ _lib = None
 BUILD_INFO: dict = {}
 
 # Launch counts, one per kernel wrapper: bumped only where a kernel is
-# launched, never by a plain version.
+# launched (`count_launch`), never by a plain version. Several host threads
+# launch at once under the threads executor, so every update holds a lock.
 LAUNCHES = {"span": 0, "evidence": 0, "sw_fitting": 0}
+_launch_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:

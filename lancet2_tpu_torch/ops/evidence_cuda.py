@@ -27,7 +27,12 @@ import functools
 import numpy as np
 import torch
 
-from lancet2_tpu_torch.ops._build import LAUNCHES, library, reset_launches
+from lancet2_tpu_torch.ops._build import (
+    LAUNCHES,
+    count_launch,
+    library,
+    reset_launches,
+)
 from lancet2_tpu_torch.ops.evidence_dp import (
     MAX_LEN,
     R_MAX,
@@ -141,7 +146,7 @@ def _run(q, qu, q_lens, t, t_lens, regions, R: int, kp: KernelParams):
     if err != 0:
         raise RuntimeError(f"evidence DP kernel (R={R}) launch failed: "
                            f"CUDA error {err}")
-    LAUNCHES["span" if R == 0 else "evidence"] += 1
+    count_launch("span" if R == 0 else "evidence")
     return iout, fout
 
 

@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from lancet2_tpu_torch.ops._build import LAUNCHES, library
+from lancet2_tpu_torch.ops._build import count_launch, library
 from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS, KernelParams
 from lancet2_tpu_torch.ops.sw_dp import fitting_scores_torch
 
@@ -119,5 +119,5 @@ def fitting_scores(q, q_lens, t, t_lens,
                      score.data_ptr(), t_end.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fitting DP kernel launch failed: CUDA error {err}")
-    LAUNCHES["sw_fitting"] += 1
+    count_launch("sw_fitting")
     return score, t_end

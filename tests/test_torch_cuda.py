@@ -153,3 +153,57 @@ def test_sw_fitting_kernel_matches_plain_on_edge_batch(shape):
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert ec.LAUNCHES["sw_fitting"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pname", ["fitting", "global"])
+def test_dirs_engine_on_card_matches_cpu(pname):
+    """The dirs engine (plain PyTorch, ops/affine_dp_torch.py) on the card
+    equals its CPU run: score, t_end and every direction byte."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lancet2_tpu_torch.ops.affine_dp import HAP_TO_REF, READ_TO_HAP
+    from lancet2_tpu_torch.ops.affine_dp_torch import align_dirs_torch
+
+    p = READ_TO_HAP if pname == "fitting" else HAP_TO_REF
+    q, _qu, q_lens, t, t_lens, _reg = _pairs(700, 96, 160, 384, 0)
+    q[3, 10:14] = 4
+    got = align_dirs_torch(q, q_lens, t, t_lens, p, device="cuda")
+    want = align_dirs_torch(q, q_lens, t, t_lens, p, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_tuple_form_two_pass_on_card_matches_cpu_one_pass():
+    """`Genotyper.run_evidence_pairs` on the card (K1 over every pair, the
+    gate, K2 over the survivors) against the one-pass plain run on the CPU:
+    equal span outputs for every pair and equal region outputs wherever a
+    pair passes the gate and overlaps the slot; both kernels launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lancet2_tpu_torch.caller.genotyper import Genotyper
+    from lancet2_tpu_torch.ops.evidence_layout import REGION_FILL, SPAN_KEYS
+
+    q, qu, q_lens, t, t_lens, regions = _pairs(710, 600, 150, 700, 4)
+    regions[:, :, 0] = np.maximum(regions[:, :, 0], 0)
+    pairs = ([q[b, :q_lens[b]] for b in range(len(q))],
+             [qu[b, :q_lens[b]] for b in range(len(q))],
+             [t[b, :t_lens[b]] for b in range(len(q))],
+             [(b, 0, regions[b], []) for b in range(len(q))])
+    before = dict(ec.LAUNCHES)
+    card = Genotyper(backend="evidence", device="cuda")
+    got = card.run_evidence_pairs(*pairs)
+    want = Genotyper(backend="evidence", device="cpu").run_evidence_pairs(*pairs)
+    assert ec.LAUNCHES["span"] > before["span"]
+    assert ec.LAUNCHES["evidence"] > before["evidence"]
+    for k in SPAN_KEYS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    live = ((want["score"] >= (0.25 * q_lens).astype(np.int64))
+            & (want["t_end"] > want["t_start"]))
+    ov = ((regions[:, :, 1] > want["t_start"][:, None])
+          & (regions[:, :, 0] < want["t_end"][:, None])
+          & (regions[:, :, 1] > regions[:, :, 0]) & live[:, None])
+    assert ov.any() and card.pass2_stats["pass2"] > 0
+    for k in REGION_FILL:
+        np.testing.assert_array_equal(got[k][ov], want[k][ov], err_msg=k)
