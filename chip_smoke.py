@@ -6,7 +6,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from lancet2_tpu_torch/csrc (nvcc, sm_90a) and
      the repo's C++ (native/, g++; a missing toolchain or library leaves
-     the numpy/Python paths, as in the JAX package);
+     the numpy/Python paths, as in the JAX package): the BAM decoder's
+     build route, or every attempt's compiler messages when none built;
   3. K1 (R=0) and K2 (R in 1, 2, 4) against their plain PyTorch versions on
      the card, exact equality required, on seeded pairs at Lq 160,
      Lt in {256, 384}, B 8192 with planted indels and deletions longer than
@@ -34,7 +35,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      128 bases against 4 haplotypes of 512, band margin 64) on the card
      for a few steps: windows/s and K3's launch count (must be > 0); its
      output and that of the window-step entry point (graft_entry.entry)
-     against the same step on the CPU;
+     equal to the same step on the CPU (float32 PLs included); and the
+     step's scan route (dp_backend="scan", the dirs engine's score pass) on
+     dual and global parameter sets, on 4 of those windows, equal to the
+     CPU's;
   8. the float64 DM PLs on the card against the host engine
      (caller/likelihood.py) on a sweep of K 2-4 and depths 0-3000: no
      mismatch allowed, as the batch executor's phase C relies on them;
@@ -46,9 +50,24 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      region, each byte-identical to phase 5's records, with times and peak
      device memory; and the dirs engine's time and peak memory per 512-pair
      chunk at Lq 160 and Lt 1024-2048;
- 10. the kernels' JSON line (each kernel's bound from this run's inputs;
-     K1/K2 also carry their launches on phase 9's threads run), the card
-     line, and the result line last.
+ 10. the kernels' bounds from this run's inputs;
+ 11. the multi-device path at full width on the device list [cuda:0] * 2
+     (two entries, a stream each): the batch executor over the whole 1 Mb
+     fixture, its records byte-identical to phase 4's, span and evidence
+     dispatches sharded (SPMD_STATS) and no span dispatch fallen back
+     (plain_span_with_mesh 0), windows/s and wall by phase; the sharded
+     window step at phase 7's shape equal to the one-device step; and
+     graft_entry.dryrun_multichip(2);
+ 12. the device graph build on the card: for the first 200 windows of the
+     1 Mb fixture at the first k, the one-window pass (build_graph_device)
+     and the tape over all 200 windows at once (build_graphs_tape), each
+     bit-identical to the numpy path (node ids, codes, signs, labels,
+     counts, roles, edges, reference path, node order), ms per window of
+     each; and the threads executor with --graph-backend device on phase
+     5's region, its records equal to phase 5's;
+ 13. the kernels' JSON line (K1/K2 also carry their launches on phase 9's
+     threads run and phase 11's mesh run, K3 on phase 11's sharded step),
+     the card line, and the result line last.
 
 Without a CUDA device it exits non-zero before printing any result. Inputs
 are made from seeds; the fixture is cached under .smoke_cache/ (gitignored).
@@ -83,6 +102,8 @@ TOLERANCE = 0  # the kernel must equal its plain version bit for bit
 STEP = dict(num_windows=16, reads_per_window=128, read_len=128, num_haps=4,
             hap_len=512, num_samples=2)
 STEP_MARGIN, STEP_REPS = 64, 5
+SCAN_WINDOWS = 4  # phase 7: windows of the step batch run through the scan
+GRAPH_WINDOWS = 200  # phase 12: windows of the 1 Mb fixture
 # phase 9: the dirs engine's chunk (pairs x query bucket) and target buckets
 DIRS_CHUNK, DIRS_LQ, DIRS_LTS = 512, 160, (1024, 1536, 2048)
 
@@ -388,25 +409,18 @@ def check_sw_fitting(dev) -> dict:
     return results
 
 
-def assert_step_close(got: dict, want: dict, what: str) -> None:
-    """The window step on the card against the CPU: scores and depth counts
-    exact; float32 PLs and GQ within 1 (torch's float32 lgamma on the card
-    and on the CPU may differ in the last bit); best genotype equal where
-    the CPU row's two lowest PLs differ by 2 or more."""
+def assert_step_equal(got: dict, want: dict, what: str) -> None:
+    """The window step on the card against the CPU: every output equal,
+    the float32 PLs, GQ and best genotype included (ops/lgamma_f32.py runs
+    the same float operations on both)."""
     import torch
 
     got = {k: v.cpu() for k, v in got.items()}
-    for k in ("scores", "allele_counts"):
-        if not torch.equal(got[k], want[k]):
-            raise AssertionError(f"{what}: {k} differs from the CPU step")
-    for k in ("pls", "gq"):
-        d = int((got[k].long() - want[k].long()).abs().max())
-        if d > 1:
-            raise AssertionError(f"{what}: {k} off by {d} from the CPU step")
-    low2 = torch.sort(want["pls"], dim=-1).values[..., :2]
-    clear = (low2[..., 1] - low2[..., 0]) >= 2
-    if not torch.equal(got["best_gt"][clear], want["best_gt"][clear]):
-        raise AssertionError(f"{what}: best_gt differs from the CPU step")
+    for k in want:
+        if not torch.equal(got[k], want[k].cpu()):
+            d = float((got[k].double() - want[k].cpu().double()).abs().max())
+            raise AssertionError(f"{what}: {k} differs from the CPU step "
+                                 f"(max abs difference {d})")
 
 
 def run_window_step(dev) -> dict:
@@ -444,7 +458,7 @@ def run_window_step(dev) -> dict:
                              f"in {1 + STEP_REPS} steps")
     want = make_window_step(ns, 2, device="cpu", band_margin=STEP_MARGIN)(
         *[a.cpu() for a in args])
-    assert_step_close(out, want, "window step")
+    assert_step_equal(out, want, "window step")
     for k, v in out.items():
         if not torch.isfinite(v.float()).all():
             raise AssertionError(f"window step: non-finite {k}")
@@ -452,9 +466,45 @@ def run_window_step(dev) -> dict:
         raise AssertionError("window step counted no read")
     e_step, e_args = graft_entry.entry(dev)
     c_step, c_args = graft_entry.entry("cpu")
-    assert_step_close(e_step(*e_args), c_step(*c_args), "graft entry")
-    log("phase 7: window step and graft entry agree with the CPU step")
+    assert_step_equal(e_step(*e_args), c_step(*c_args), "graft entry")
+    log("phase 7: window step and graft entry equal the CPU step")
+    check_scan_step(args)
     return dict(launches=launches, windows_per_s=nw / per_step)
+
+
+def check_scan_step(args) -> None:
+    """Phase 7: the window step's scan route (the dirs engine's score pass)
+    on parameter sets K3 does not take, on the card against the CPU."""
+    from lancet2_tpu_torch.ops.affine_dp import HAP_TO_REF, AlignParams
+    from lancet2_tpu_torch.ops.window_step import make_window_step
+
+    dual_fitting = AlignParams(match=1, mismatch=4, gap_open1=12,
+                               gap_extend1=3, gap_open2=30, gap_extend2=1,
+                               free_target_ends=True)
+    part = [a[:SCAN_WINDOWS] for a in args]
+    for name, params in (("HAP_TO_REF (dual, global)", HAP_TO_REF),
+                         ("dual fitting", dual_fitting)):
+        outs = []
+        for device in ("cuda", "cpu"):
+            step = make_window_step(STEP["num_samples"], 2, params=params,
+                                    device=device, band_margin=STEP_MARGIN,
+                                    dp_backend="scan")
+            t0 = time.monotonic()
+            outs.append(step(*[a.to(device) for a in part]))
+            if device == "cuda":
+                import torch
+
+                torch.cuda.synchronize()
+            log(f"phase 7: scan step {name}, W={SCAN_WINDOWS} on {device}: "
+                f"{(time.monotonic() - t0) * 1e3:.3f} ms")
+        assert_step_equal(outs[0], outs[1], f"scan step {name}")
+        # HAP_TO_REF scores no read above the step's gate (match 0, global):
+        # its depths are 0 there too, so its scores are what is held
+        if outs[1]["scores"].unique().numel() < 2 or (
+                params.match > 0 and int(outs[0]["allele_counts"].sum()) == 0):
+            raise AssertionError(f"scan step {name}: degenerate output")
+    log("phase 7: the scan route on cuda equals the CPU on dual and global "
+        "params")
 
 
 def check_pls(dev) -> None:
@@ -489,7 +539,7 @@ def vcf_records(path: str) -> list[str]:
 
 
 def run_port(fx: dict, out_vcf: str, device: str, region=None,
-             extra=()) -> dict:
+             extra=(), devices=None) -> dict:
     from lancet2_tpu_torch.cli.main import build_parser, run_pipeline
 
     argv = ["pipeline", "-n", fx["normal"], "-t", fx["tumor"],
@@ -498,7 +548,7 @@ def run_port(fx: dict, out_vcf: str, device: str, region=None,
     if region:
         argv += ["-R", region]
     return run_pipeline(build_parser().parse_args(argv),
-                        "chip_smoke " + " ".join(argv))
+                        "chip_smoke " + " ".join(argv), devices=devices)
 
 
 def dirs_chunk(Lt: int):
@@ -585,6 +635,189 @@ def run_threads(fx: dict, cache: str, recs_1mb: list, region5: str,
     return launches
 
 
+def run_multi_device(fx: dict, cache: str, recs_1mb: list) -> dict:
+    """Phase 11: the multi-device path at full width on [cuda:0] * 2.
+    Returns its launch counts (the mesh run's K1/K2, the sharded step's
+    K3)."""
+    import torch
+
+    from lancet2_tpu_torch import graft_entry
+    from lancet2_tpu_torch.caller import genotyper as gmod
+    from lancet2_tpu_torch.ops import _build
+    from lancet2_tpu_torch.ops.window_step import make_window_step
+    from lancet2_tpu_torch.parallel import evidence_spmd as spmd
+    from lancet2_tpu_torch.parallel.mesh import (
+        make_mesh,
+        make_sharded_window_step,
+    )
+
+    dev = torch.device("cuda", 0)
+    devices = [dev, dev]
+    for k in gmod.MESH_FALLBACK_STATS:
+        gmod.MESH_FALLBACK_STATS[k] = 0
+    spmd_before = dict(spmd.SPMD_STATS)
+    path = os.path.join(cache, "smoke_1mb_mesh.vcf.gz")
+    _build.reset_launches()
+    st = run_port(fx, path, "cuda", devices=devices)
+    launches = dict(_build.LAUNCHES)
+    sharded = {k: spmd.SPMD_STATS[k] - spmd_before[k] for k in spmd_before}
+    got = vcf_records(path)
+    log(f"phase 11: batch executor on {st['devices']}: {st['windows']} "
+        f"windows in {st['runtime_s']:.2f} s = {st['windows_per_s']:.3f} "
+        f"windows/s; records {len(got)}; launches {json.dumps(launches)}; "
+        f"sharded dispatches {json.dumps(sharded)}; fallbacks "
+        f"{json.dumps(gmod.MESH_FALLBACK_STATS)}")
+    log("phase 11: wall by phase " + json.dumps(
+        {k: v["seconds"] for k, v in st["wall_profile"].items()}))
+    if st["devices"] != ["cuda:0", "cuda:0"]:
+        raise AssertionError(f"the executor ran on {st['devices']}")
+    if got != recs_1mb:
+        raise AssertionError("mesh and one-device records differ on the 1 Mb "
+                             "fixture")
+    if sharded["span_sharded"] == 0 or sharded["evidence_sharded"] == 0:
+        raise AssertionError(f"the mesh run did not shard both kernels: "
+                             f"{sharded}")
+    if gmod.MESH_FALLBACK_STATS["plain_span_with_mesh"]:
+        raise AssertionError("the mesh run fell back to a plain span "
+                             "dispatch")
+    log("phase 11: mesh and phase 4 records are byte-identical")
+
+    mesh = make_mesh(devices)
+    fn, shard = make_sharded_window_step(mesh, STEP["num_samples"], 2,
+                                         band_margin=STEP_MARGIN)
+    batch = step_batch("cpu")
+    _build.reset_launches()
+    t0 = time.monotonic()
+    out = fn(*shard(batch))
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    step_launches = _build.LAUNCHES["sw_fitting"]
+    one = make_window_step(STEP["num_samples"], 2, device=dev,
+                           band_margin=STEP_MARGIN)(
+        *(batch[k].to(dev) for k in (
+            "reads", "read_lens", "read_sample", "read_valid", "haps",
+            "hap_lens", "hap_allele")), read_offset=batch["read_offset"])
+    assert_step_equal({k: out[k] for k in one}, one, "sharded window step")
+    log(f"phase 11: sharded window step W={STEP['num_windows']} on 2 "
+        f"entries: {ms:.3f} ms (first call), sw_fitting launches "
+        f"{step_launches}, total_alt_depth {float(out['total_alt_depth'])}, "
+        f"equal to the one-device step")
+    if step_launches != 2:
+        raise AssertionError(f"the sharded step launched K3 {step_launches} "
+                             f"times on 2 entries")
+
+    t0 = time.monotonic()
+    graft_entry.dryrun_multichip(2)
+    log(f"phase 11: graft_entry.dryrun_multichip(2) passed in "
+        f"{time.monotonic() - t0:.1f} s")
+    return dict(span=launches["span"], evidence=launches["evidence"],
+                sw_fitting=step_launches)
+
+
+def graph_table(g) -> tuple:
+    """A built Graph's node table, reference path, built ids and node
+    order, for bit-for-bit comparison."""
+    table = {nid: (tuple(n.codes.tolist()), n.sign, n.label,
+                   tuple(n.counts.tolist()), tuple(n.role_counts),
+                   tuple(sorted(n.edges)))
+             for nid, n in g.nodes.items()}
+    return table, list(g.ref_node_ids), set(g.all_built_ids), list(g.nodes)
+
+
+def run_graph_build(fx: dict, cache: str, region5: str, recs5: list) -> None:
+    """Phase 12: the device graph build on the card against the numpy
+    path, and the threads executor with --graph-backend device."""
+    import torch
+
+    from lancet2_tpu_torch.base.dna import encode
+    from lancet2_tpu_torch.cbdg.graph import LABEL_REFERENCE, Graph, GraphParams
+    from lancet2_tpu_torch.core.read_collector import (
+        CollectorParams,
+        ReadCollector,
+    )
+    from lancet2_tpu_torch.core.sample_info import make_sample_list
+    from lancet2_tpu_torch.core.window_builder import WindowBuilder, WindowParams
+    from lancet2_tpu_torch.hts.fasta import Reference
+    from lancet2_tpu_torch.ops.graph_tape import build_graphs_tape
+
+    t0 = time.monotonic()
+    ref = Reference(fx["fasta"])
+    samples = make_sample_list([fx["normal"]], [fx["tumor"]], [])
+    wb = WindowBuilder(ref, WindowParams())
+    wb.add_whole_reference()
+    wb.sort_input_regions()
+    windows = wb.build_windows()[:GRAPH_WINDOWS]
+    collector = ReadCollector(CollectorParams(), samples)
+    k = GraphParams().min_kmer_len
+    cases = []  # (ref codes, reads, (seqs, quals, meta))
+    for w in windows:
+        reads = collector.collect(w.chrom, w.start1, w.end1)
+        ref_codes = encode(w.seq(ref))
+        seqs, quals, meta = [ref_codes], [None], [(LABEL_REFERENCE, -1, 0, 0)]
+        for r in reads:
+            if r.passes_aln_filters and len(r.codes) >= k + 1:
+                seqs.append(r.codes)
+                quals.append(r.qual)
+                meta.append((r.tag, r.sample_index, r.tag, r.qname_hash))
+        cases.append((ref_codes, reads, (seqs, quals, meta)))
+    log(f"phase 12: {len(cases)} windows collected in "
+        f"{time.monotonic() - t0:.1f} s, k={k}, "
+        f"{sum(len(c[2][0]) for c in cases)} sequences")
+
+    def graph(backend):
+        g = Graph(GraphParams(num_samples=len(samples), build_backend=backend,
+                              build_device="cuda"))
+        g.curr_k = k
+        g.nodes, g.ref_node_ids = {}, []
+        return g
+
+    times = {}
+    want = []
+    t0 = time.monotonic()
+    for ref_codes, reads, _inp in cases:
+        g = graph("numpy")
+        g._build_graph(ref_codes, reads, k)
+        want.append(graph_table(g))
+    times["numpy"] = time.monotonic() - t0
+    for build in ("xla", "tape"):  # one window per device pass
+        getattr(graph("device"), f"_build_graph_{build}")(*cases[0][2], k,
+                                                           len(samples))
+        torch.cuda.synchronize()  # warm-up
+        t0 = time.monotonic()
+        for (_r, _rd, inp), w in zip(cases, want):
+            g = graph("device")
+            getattr(g, f"_build_graph_{build}")(*inp, k, len(samples))
+            if graph_table(g) != w:
+                raise AssertionError(f"device graph ({build}) differs from "
+                                     f"the numpy path")
+        times[build] = time.monotonic() - t0
+    t0 = time.monotonic()
+    outs = build_graphs_tape([c[2] for c in cases], k, len(samples), "cuda")
+    for out, (_r, _rd, (seqs, _q, meta)), w in zip(outs, cases, want):
+        g = graph("device")
+        g._materialize_tape_window(out, seqs, meta, k, len(samples))
+        if graph_table(g) != w:
+            raise AssertionError("batched tape graph differs from the numpy "
+                                 "path")
+    times["tape_batched"] = time.monotonic() - t0
+    n = len(cases)
+    log("phase 12: ms per window (host clock, host materialization "
+        "included) " + json.dumps({b: round(v / n * 1e3, 3)
+                                   for b, v in times.items()})
+        + f"; nodes {sum(len(w[0]) for w in want)}; every backend "
+        f"bit-identical to the numpy path")
+
+    path = os.path.join(cache, "smoke_region_graph_device.vcf.gz")
+    st = run_port(fx, path, "cuda", region5,
+                  ["--executor", "threads", "--graph-backend", "device"])
+    log(f"phase 12: threads executor, --graph-backend device on cuda, "
+        f"{region5}: {st['windows']} windows in {st['runtime_s']:.2f} s")
+    if vcf_records(path) != recs5:
+        raise AssertionError("--graph-backend device: records differ from "
+                             "phase 5's")
+    log("phase 12: --graph-backend device records equal phase 5's")
+
+
 def main() -> int:
     import torch
 
@@ -635,6 +868,11 @@ def main() -> int:
     log(f"phase 2: native assembly core {native_core.available()}, native "
         f"BAM decoder {bam_native.available()} "
         f"({time.monotonic() - t0:.1f} s)")
+    if bam_native.available():
+        log(f"phase 2: native BAM decoder built with {bam_native.build_route()}")
+    else:
+        log("phase 2: native BAM decoder build failed; reads decode in "
+            "Python. Compiler output:\n" + (bam_native.build_error() or ""))
 
     log("phase 3: kernels against their plain versions")
     kres = check_kernels(dev)
@@ -691,6 +929,8 @@ def main() -> int:
     step_res = run_window_step(dev)
     check_pls(dev)
     thr_launches = run_threads(fx, cache, recs, region, got["cuda"])
+    mesh_launches = run_multi_device(fx, cache, recs)
+    run_graph_build(fx, cache, region, got["cuda"])
 
     clock_hz = card_clock_hz()
     log(f"phase 10: bounds at {clock_hz / 1e6:.0f} MHz x {sms} SMs x "
@@ -711,6 +951,7 @@ def main() -> int:
             "source": "lancet2_tpu_torch/csrc/evidence_dp.cu",
             "replaces": replaces, "launches": launches[launch_key],
             "launches_threads": thr_launches[launch_key],
+            "launches_mesh": mesh_launches[launch_key],
             "max_abs_err": max(errs), "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
@@ -734,6 +975,7 @@ def main() -> int:
         "source": "lancet2_tpu_torch/csrc/sw_fitting.cu",
         "replaces": "lancet2_tpu/ops/sw_pallas.py:184",
         "launches": step_res["launches"],
+        "launches_mesh": mesh_launches["sw_fitting"],
         "max_abs_err": max(v["max_abs_err"] for v in swres.values()),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,

@@ -1,8 +1,8 @@
 """Read -> haplotype allele assignment: the genotyper of the port.
 
 The JAX package's `caller/genotyper.py` with its engines swapped for the
-port's and the TPU-only measures left out (mesh counters, descent taint and
-host rerun, pinned device shapes). Three backends, as in the JAX package:
+port's and the TPU-only measures left out (descent taint and host rerun,
+pinned device shapes). Three backends, as in the JAX package:
 
   numpy     the CIGAR-walk baseline: `align_batch_numpy` + traceback;
   jax       the same walk over the bucketed dirs engine
@@ -58,6 +58,7 @@ from lancet2_tpu_torch.caller.scoring import (
 from lancet2_tpu_torch.caller.support import STRAND_FWD, STRAND_REV, ReadEvidence, VariantSupport
 from lancet2_tpu_torch.caller.variant import RawVariant
 from lancet2_tpu_torch.cbdg.read import Read
+from lancet2_tpu_torch.core.prep_worker import ReadCols
 from lancet2_tpu_torch.ops.affine_dp import READ_TO_HAP, align_batch_numpy, traceback_batch
 from lancet2_tpu_torch.ops.evidence_layout import R_MAX, REGION_FILL, SPAN_KEYS
 
@@ -71,6 +72,12 @@ PASS2_R = (1, 2, 4)  # evidence launch classes: highest active slot + 1
 # pairs per kernel launch of the tuple form on a CUDA device (the CPU runs
 # _PAIR_CHUNK, as the JAX package's host engine)
 _DEVICE_PAIR_CHUNK = 8192
+
+# With a mesh attached, a dispatch is sharded only when it fills at least
+# this many rows per mesh entry; the rest run on the first entry and are
+# counted here (the multi-device dry run asserts plain_span_with_mesh == 0).
+SPMD_MIN_ROWS_PER_DEVICE = 128
+MESH_FALLBACK_STATS = {"plain_span_with_mesh": 0, "plain_ev_with_mesh": 0}
 
 
 def pass2_survivors(score, t_start, t_end, regions, min_scores):
@@ -120,13 +127,16 @@ class Genotyper:
 
     `device` names a torch device ("cuda", "cuda:0", "cpu"); it is resolved
     only when an engine runs, so that phase A, which builds pairs and never
-    touches the device, imports no torch."""
+    touches the device, imports no torch. `devices`, a list of devices, has
+    the tuple-form evidence path take them in turn, one launch chunk each,
+    as the JAX package's Genotyper(devices=) does."""
 
     def __init__(self, backend: str = "numpy", min_score_frac: float = 0.25,
-                 device="cuda"):
+                 device="cuda", devices: list | None = None):
         self.backend = backend
         self.min_score_frac = min_score_frac
         self.device = device
+        self.devices = devices
         # pairs seen / pairs sent to pass 2, summed over this genotyper's life
         self.pass2_stats = {"total": 0, "pass2": 0}
 
@@ -278,9 +288,13 @@ class Genotyper:
         import torch
 
         dev = torch.device(self.device)
+        if self.devices:
+            return self._run_evidence_pairs_two_pass(
+                pair_q, pair_qu, pair_t, pair_meta,
+                [torch.device(d) for d in self.devices])
         if dev.type == "cuda":
             return self._run_evidence_pairs_two_pass(
-                pair_q, pair_qu, pair_t, pair_meta, dev)
+                pair_q, pair_qu, pair_t, pair_meta, [dev])
         if dev.type != "cpu":
             raise ValueError(f"no evidence DP for device {dev}")
         from lancet2_tpu_torch.ops.evidence_dp import evidence_dp
@@ -296,9 +310,10 @@ class Genotyper:
 
     def _run_evidence_pairs_two_pass(self, pair_q, pair_qu, pair_t,
                                      pair_meta, dev):
-        """Two-pass dispatch on `dev`, through the kernel wrappers: the
-        kernels on a CUDA device, their plain versions on CPU tensors (how
-        the tests hold this protocol on the CPU). Pass 1: K1 (score, t_end,
+        """Two-pass dispatch on `dev`, a device or a list of devices whose
+        entries the launch chunks take in turn, through the kernel wrappers:
+        the kernels on a CUDA device, their plain versions on CPU tensors
+        (how the tests hold this protocol on the CPU). Pass 1: K1 (score, t_end,
         t_start, NM) over EVERY pair, all chunks launched before any is read
         back. Pass 2: K2 over the survivors of `pass2_survivors` only, on
         their full targets, by launch class. Excluded pairs' region outputs
@@ -320,12 +335,15 @@ class Genotyper:
         )
         from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
 
-        kp = READ_TO_HAP_PARAMS.to(dev)
+        devs = dev if isinstance(dev, (list, tuple)) else [dev]
 
-        def put(a, dt):
-            return torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+        def launch(lists, R, ci):
+            dev = devs[ci % len(devs)]
+            kp = READ_TO_HAP_PARAMS.to(dev)
 
-        def launch(lists, R):
+            def put(a, dt):
+                return torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+
             qs, qus, qlens, ts, tlens, regions = self._chunk_inputs(
                 *lists, 0, len(lists[0]))
             q, ql = put(qs, np.uint8), put(qlens, np.int32)
@@ -339,9 +357,9 @@ class Genotyper:
         lists = (pair_q, pair_qu, pair_t, pair_meta)
         chunk = _DEVICE_PAIR_CHUNK
         pend = []
-        for lo in range(0, n, chunk):
+        for ci, lo in enumerate(range(0, n, chunk)):
             hi = min(lo + chunk, n)
-            pend.append((launch([x[lo:hi] for x in lists], 0), lo, hi))
+            pend.append((launch([x[lo:hi] for x in lists], 0, ci), lo, hi))
         outs = {k: np.zeros(n, np.int64) for k in SPAN_KEYS}
         for iout, lo, hi in pend:
             span = span_pairs_finalize(iout)
@@ -364,8 +382,8 @@ class Genotyper:
             sel = needed[r_need == R]
             for lo in range(0, sel.size, chunk):
                 idx = sel[lo:lo + chunk]
-                pend.append((launch([[x[i] for i in idx] for x in lists], R),
-                             idx, R))
+                pend.append((launch([[x[i] for i in idx] for x in lists], R,
+                                    len(pend)), idx, R))
         for (iout, fout), idx, R in pend:
             sub = evidence_pairs_finalize(iout, fout, R)
             for k in outs:
@@ -559,13 +577,14 @@ class Genotyper:
         for r in sorted(winners):
             if columnar:
                 fl = int(reads.flags[r])
-                strand = STRAND_REV if fl & 4 else STRAND_FWD
+                strand = STRAND_REV if fl & ReadCols.F_REVERSE else STRAND_FWD
                 sample_name = reads.sample_names[reads.sample_idx[r]]
                 insert_size = int(reads.insert_size[r])
                 start0 = int(reads.start0[r])
                 qname_hash = int(reads.qname_hash[r])
                 mapq = int(reads.mapq[r])
-                is_clip, is_pp = bool(fl & 1), bool(fl & 2)
+                is_clip = bool(fl & ReadCols.F_SOFT_CLIPPED)
+                is_pp = bool(fl & ReadCols.F_PROPER_PAIR)
             else:
                 read = reads[r]
                 strand = STRAND_REV if read.is_reverse else STRAND_FWD
@@ -849,9 +868,12 @@ class Genotyper:
 
 class TorchGenotyper(Genotyper):
     """The batch executor's device half: the indexed two-pass protocol on
-    one torch device."""
+    one torch device, or with `mesh` (parallel/mesh.py) sharded over the
+    mesh's entries (parallel/evidence_spmd.py) whenever a dispatch fills at
+    least SPMD_MIN_ROWS_PER_DEVICE rows per entry; smaller ones run on the
+    first entry and count in MESH_FALLBACK_STATS."""
 
-    def __init__(self, device, min_score_frac: float = 0.25):
+    def __init__(self, device, min_score_frac: float = 0.25, mesh=None):
         import torch
 
         from lancet2_tpu_torch.ops.params import READ_TO_HAP_PARAMS
@@ -859,6 +881,15 @@ class TorchGenotyper(Genotyper):
         super().__init__(backend="evidence", min_score_frac=min_score_frac,
                          device=torch.device(device))
         self.kp = READ_TO_HAP_PARAMS.to(self.device)
+        self.mesh = mesh
+
+    def _use_mesh(self, n: int, fallback_key: str) -> bool:
+        if self.mesh is None:
+            return False
+        if n >= self.mesh.size * SPMD_MIN_ROWS_PER_DEVICE:
+            return True
+        MESH_FALLBACK_STATS[fallback_key] += 1
+        return False
 
     def run_evidence_indexed(self, pools: dict, pairs: dict,
                              pair_chunk: int | None = None):
@@ -891,18 +922,41 @@ class TorchGenotyper(Genotyper):
         n = len(read_ix)
         lt = int(pairs.get("lt_bucket") or _bucket(
             int(np.max(tlens, initial=1)), _TARGET_BUCKETS))
-        dev = DevicePools(pools["reads_q"], pools["reads_qu"],
-                          pools["read_lens"], pools["haps"], self.device)
+        pool_args = (pools["reads_q"], pools["reads_qu"], pools["read_lens"],
+                     pools["haps"])
+        st = dict(n=n, chunk=chunk, read_ix=read_ix, hap_ix=hap_ix,
+                  band_start=band_start,
+                  regions=np.asarray(pairs["regions"], np.int32))
+        if self.mesh is not None:
+            from lancet2_tpu_torch.parallel.evidence_spmd import (
+                replicate_pools,
+                span_indexed_sharded_submit,
+            )
+
+            st["pools"] = replicate_pools(self.mesh, *pool_args)
+            st["dev"] = st["pools"][0]
+            if self._use_mesh(n, "plain_span_with_mesh"):
+                st["sharded"] = span_indexed_sharded_submit(
+                    self.mesh, st["pools"], read_ix, hap_ix, band_start,
+                    tlens, lt, self.kp, self._max_rows(chunk))
+                return st
+        else:
+            st["dev"] = DevicePools(*pool_args, self.device)
         pend = []
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
-            iout = span_indexed_submit(dev, read_ix[lo:hi], hap_ix[lo:hi],
-                                       band_start[lo:hi], tlens[lo:hi], lt,
-                                       self.kp)
+            iout = span_indexed_submit(st["dev"], read_ix[lo:hi],
+                                       hap_ix[lo:hi], band_start[lo:hi],
+                                       tlens[lo:hi], lt, self.kp)
             pend.append((iout, lo, hi))
-        return dict(dev=dev, pend=pend, n=n, chunk=chunk, read_ix=read_ix,
-                    hap_ix=hap_ix, band_start=band_start,
-                    regions=np.asarray(pairs["regions"], np.int32))
+        st["pend"] = pend
+        return st
+
+    def _max_rows(self, chunk: int) -> int | None:
+        """Rows per launch of a sharded dispatch: one launch per entry on a
+        CUDA device; chunks on the CPU, where the plain version's planes
+        grow with the launch."""
+        return chunk if self.device.type == "cpu" else None
 
     def finish_evidence_indexed(self, st: dict) -> dict:
         from lancet2_tpu_torch.ops.evidence_cuda import (
@@ -916,7 +970,15 @@ class TorchGenotyper(Genotyper):
         band_start, regions = st["band_start"], st["regions"]
 
         outs = {k: np.zeros(n, np.int64) for k in SPAN_KEYS}
-        for iout, lo, hi in st["pend"]:
+        if "sharded" in st:
+            from lancet2_tpu_torch.parallel.evidence_spmd import (
+                span_sharded_finalize,
+            )
+
+            span = span_sharded_finalize(st["sharded"])
+            for k in outs:
+                outs[k][:] = span[k]
+        for iout, lo, hi in st.get("pend", ()):
             span = span_pairs_finalize(iout)
             for k in outs:
                 outs[k][lo:hi] = span[k]
@@ -941,6 +1003,19 @@ class TorchGenotyper(Genotyper):
         pend = []
         for R in PASS2_R:
             sel = np.flatnonzero(r_need == R)
+            if sel.size and self._use_mesh(sel.size, "plain_ev_with_mesh"):
+                from lancet2_tpu_torch.parallel.evidence_spmd import (
+                    evidence_indexed_sharded,
+                )
+
+                idx = needed[sel]
+                reg = regions[idx] - c_off[sel, None, None].astype(np.int32)
+                sub = evidence_indexed_sharded(
+                    self.mesh, st["pools"], read_ix[idx], hap_ix[idx],
+                    band_start[idx] + c_off[sel], c_len[sel], reg,
+                    int(c_len[sel].max()), R, self.kp, self._max_rows(chunk))
+                pend.append((sub, idx, c_off[sel]))
+                continue
             for lo in range(0, sel.size, chunk):
                 k = sel[lo:lo + chunk]
                 idx = needed[k]
@@ -948,9 +1023,10 @@ class TorchGenotyper(Genotyper):
                 iout, fout = evidence_indexed_submit(
                     dev, read_ix[idx], hap_ix[idx], band_start[idx] + c_off[k],
                     c_len[k], reg, int(c_len[k].max()), R, self.kp)
-                pend.append((iout, fout, idx, c_off[k], R))
-        for iout, fout, idx, off, R in pend:
-            sub = evidence_pairs_finalize(iout, fout, R)
+                pend.append(((iout, fout, R), idx, c_off[k]))
+        for sub, idx, off in pend:
+            if isinstance(sub, tuple):
+                sub = evidence_pairs_finalize(*sub)
             # t_start/t_end come back in crop coordinates
             sub["t_start"] = sub["t_start"] + off
             sub["t_end"] = sub["t_end"] + off

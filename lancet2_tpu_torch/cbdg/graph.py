@@ -191,8 +191,13 @@ class GraphParams:
     # snapshots every pruning boundary (reference GraphSnapshotMode)
     snapshot_mode: str = "final"
     # construction backend: 'auto' (native C++ then numpy), 'native',
-    # 'numpy'; 'device' (the JAX package's XLA pass) is not ported and raises
+    # 'numpy', 'device' (the tape-packed torch pass, ops/graph_tape.py, on
+    # build_device; never chosen by 'auto')
     build_backend: str = "auto"
+    # torch device of the 'device' backend, by name (phase A imports torch
+    # only when that backend runs); the batch executor's forked prep
+    # workers keep "cpu"
+    build_device: str = "cpu"
 
 
 class _RefAnchor(NamedTuple):
@@ -540,8 +545,8 @@ class Graph:
 
         backend = getattr(self.params, "build_backend", "auto")
         if backend == "device":
-            raise NotImplementedError(
-                "the device graph build is not ported (use native or numpy)")
+            self._build_graph_tape(seqs, seq_quals, seq_meta, k, num_samples)
+            return
         if backend != "numpy":
             if self._build_graph_native(seqs, seq_quals, seq_meta, k, num_samples):
                 return
@@ -665,6 +670,136 @@ class Graph:
                 fwd = Edge(int(s_id), int(d_id), kind)
                 s_node.emplace_edge(fwd)
                 d_node.emplace_edge(fwd.mirror())
+
+    def _build_graph_tape(self, seqs, seq_quals, seq_meta, k: int,
+                          num_samples: int) -> None:
+        """Tape-packed device pass (ops/graph_tape.py) on
+        params.build_device: the 'device' backend. A failure raises."""
+        from lancet2_tpu_torch.ops.graph_tape import build_graphs_tape
+
+        outs = build_graphs_tape([(seqs, seq_quals, seq_meta)], k,
+                                 num_samples, self.params.build_device)
+        self._materialize_tape_window(outs[0], seqs, seq_meta, k, num_samples)
+
+    def _materialize_tape_window(self, out, seqs, seq_meta, k, num_samples):
+        """Host materialization of one window's compact tape-pass output."""
+        self.nodes = {}
+        self.ref_node_ids = []
+        if out is None:
+            self.all_built_ids = set()
+            return
+
+        ids = out["ids"]
+        counts = out["counts"]
+        roles = out["roles"]
+        signs = out["signs"]
+        labels = out["labels"]
+
+        if seq_meta and seq_meta[0][0] == LABEL_REFERENCE:
+            self.ref_node_ids = [
+                int(ids[r]) if r >= 0 else 0 for r in out["ref_rows"]
+            ]
+        self.all_built_ids = set(int(i) for i in ids)
+
+        totals = counts.sum(axis=1)
+        all_singleton = (counts > 0).any(axis=1) & (counts <= 1).all(axis=1)
+        survives = (~all_singleton) & (totals >= self.params.min_node_cov)
+
+        order = np.argsort(out["first_ord"], kind="stable")
+        for ui in order:
+            if not survives[ui]:
+                continue
+            nid = int(ids[ui])
+            node = Node(
+                nid,
+                np.ascontiguousarray(out["codes"][ui]),
+                int(signs[ui]),
+                int(labels[ui]),
+                num_samples,
+            )
+            node.counts = counts[ui].astype(np.int64)
+            node.role_counts = [int(roles[ui, 0]), int(roles[ui, 1])]
+            self.nodes[nid] = node
+
+        self._add_edges(ids[out["edges"][:, 0]], ids[out["edges"][:, 1]])
+
+    def _add_edges(self, src_ids, dst_ids) -> None:
+        """Emplace each distinct (src, dst) id pair between surviving nodes,
+        its kind from the nodes' stored signs, in id-pair order."""
+        if not len(src_ids):
+            return
+        pk = np.empty(len(src_ids), dtype=[("s", "u8"), ("d", "u8")])
+        pk["s"] = src_ids
+        pk["d"] = dst_ids
+        for s_id, d_id in np.unique(pk):
+            s_node = self.nodes.get(int(s_id))
+            d_node = self.nodes.get(int(d_id))
+            if s_node is None or d_node is None:
+                continue
+            kind = make_kind(s_node.sign, d_node.sign)
+            fwd = Edge(int(s_id), int(d_id), kind)
+            s_node.emplace_edge(fwd)
+            d_node.emplace_edge(fwd.mirror())
+
+    def _build_graph_xla(self, seqs, seq_quals, seq_meta, k: int,
+                         num_samples: int) -> None:
+        """One-window device pass (ops/graph_tpu.py) on params.build_device,
+        the twin of _build_graph_tape (the JAX package's first device pass;
+        the 'device' backend takes the tape). A failure raises."""
+        from lancet2_tpu_torch.ops.graph_tpu import build_graph_device
+
+        out = build_graph_device(seqs, seq_quals, seq_meta, k, num_samples,
+                                 self.params.build_device)
+        if out is None:
+            return  # no sequences: empty graph
+
+        ids = out["ids"]
+        counts = out["counts"]
+        roles = out["roles"]
+        first_idx = out["first_idx"]
+        inverse = out["inverse"]
+        occ_sign = out["occ_sign"]
+        M = out["grid_m"]
+
+        if seq_meta and seq_meta[0][0] == LABEL_REFERENCE:
+            ref_m = len(seqs[0]) - k + 1
+            self.ref_node_ids = [int(ids[u]) for u in inverse[0, :ref_m]]
+        else:
+            self.ref_node_ids = []
+        self.all_built_ids = set(int(i) for i in ids)
+
+        totals = counts.sum(axis=1)
+        all_singleton = (counts > 0).any(axis=1) & (counts <= 1).all(axis=1)
+        survives = (~all_singleton) & (totals >= self.params.min_node_cov)
+
+        order = np.argsort(first_idx, kind="stable")
+        for ui in order:
+            if not survives[ui]:
+                continue
+            fi = int(first_idx[ui])
+            si, pos = fi // M, fi % M
+            nid = int(ids[ui])
+            node = Node(
+                nid,
+                np.ascontiguousarray(out["codes"][ui]),
+                int(occ_sign[si, pos]),
+                int(seq_meta[si][0]),
+                num_samples,
+            )
+            node.counts = counts[ui].astype(np.int64)
+            node.role_counts = [int(roles[ui, 0]), int(roles[ui, 1])]
+            self.nodes[nid] = node
+
+        # edges from consecutive occurrence pairs (uniq-index space -> ids)
+        src_list, dst_list = [], []
+        for si, codes in enumerate(seqs):
+            m = len(codes) - k + 1
+            if m >= 2:
+                src_list.append(inverse[si, : m - 1])
+                dst_list.append(inverse[si, 1:m])
+        if src_list:
+            self._add_edges(ids[np.concatenate(src_list)],
+                            ids[np.concatenate(dst_list)])
 
     def _build_graph_native(self, seqs, seq_quals, seq_meta, k: int,
                             num_samples: int) -> bool:

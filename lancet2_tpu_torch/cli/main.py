@@ -4,9 +4,11 @@ The JAX package's CLI (`lancet2_tpu/cli/main.py`) with its flag surface,
 without the jax configuration block. `--device` takes {cpu, cuda}. The
 port's defaults are `--device cuda --executor batch --aligner-backend
 evidence` (the JAX package's: cpu, threads, jax); the threads executor runs
-with every backend. An option the port does not support yet
-(`--graph-backend device`) raises a clear error instead of being ignored.
-`index` and `cram` run through the port's own hts modules.
+with every backend. `--graph-backend device` builds the k-mer graphs with
+the tape-packed torch pass (ops/graph_tape.py): under `--executor threads`
+on `--device`, under `--executor batch` on the CPU, because phase A's prep
+workers (forked processes, or threads that never touch the device) build
+the graphs. `index` and `cram` run through the port's own hts modules.
 
 This module does not import torch at import time: the prep coordinator is
 spawned, and a spawned process re-imports the main module.
@@ -128,8 +130,11 @@ def build_parser() -> argparse.ArgumentParser:
                     default="auto",
                     help="k-mer graph construction engine (bit-exact twins; "
                          "cbdg/graph.py): native C++ single-pass or numpy "
-                         "vectorized; auto = native with numpy fallback "
-                         "(device is not ported)")
+                         "vectorized; auto = native with numpy fallback; "
+                         "device = the tape-packed torch pass, on --device "
+                         "under --executor threads and on the CPU under "
+                         "--executor batch (its prep workers never touch "
+                         "the device)")
     pl.add_argument("-k", "--min-kmer", type=int, default=13)
     pl.add_argument("-K", "--max-kmer", type=int, default=127)
     pl.add_argument("--kmer-step", type=int, default=6)
@@ -179,17 +184,20 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _reject_unsupported(args) -> None:
-    if args.graph_backend == "device":
-        raise SystemExit("not supported by lancet2_tpu_torch yet: "
-                         "--graph-backend device (the XLA graph build is "
-                         "not ported)")
+def graph_build_device(args) -> str:
+    """Where `--graph-backend device` builds: the run's device under the
+    threads executor; the CPU under the batch executor, whose phase A runs
+    in forked processes (or threads) that never touch the device."""
+    return args.device if args.executor == "threads" else "cpu"
 
 
-def run_pipeline(args, command_line: str) -> dict:
+def run_pipeline(args, command_line: str, devices: list | None = None
+                 ) -> dict:
+    """Run the `pipeline` command. `devices` (Python callers only, no flag,
+    as in the JAX package) hands the batch executor a device list: None
+    takes every visible CUDA device under --device cuda."""
     configure(args.verbose)
     t0 = time.monotonic()
-    _reject_unsupported(args)
 
     from lancet2_tpu_torch.core.sample_info import parse_sample_spec
     from lancet2_tpu_torch.hts.uri import validate_cloud_access
@@ -333,7 +341,14 @@ def run_pipeline(args, command_line: str) -> dict:
         num_samples=len(samples),
         snapshot_mode=args.graph_snapshots,
         build_backend=args.graph_backend,
+        build_device=graph_build_device(args),
     )
+    if args.graph_backend == "device":
+        LOG.info("graph build: the tape-packed torch pass on %s%s",
+                 graph_params.build_device,
+                 "" if args.executor == "threads" else
+                 " (--executor batch: phase A's prep workers never touch "
+                 "the device)")
     shards_dir = None
     if args.out_graphs_tgz:
         import tempfile
@@ -385,6 +400,7 @@ def run_pipeline(args, command_line: str) -> dict:
             total_hint=expected_windows if stream_windows else None,
             prep_mode=args.prep_mode,
             device=args.device,
+            devices=devices,
         )
     else:
         from lancet2_tpu_torch.core.pipeline import PipelineExecutor

@@ -1,9 +1,15 @@
-"""Batch executor on one torch device: parallel phase-A prep + fused
+"""Batch executor on a list of torch devices: parallel phase-A prep + fused
 cross-window evidence DP.
 
-The JAX package's `core/batch_pipeline.py` with its JAX-only branches deleted
-(no `jax.devices()`, no mesh): one explicit `torch.device` and the port's
-`TorchGenotyper`.
+The JAX package's `core/batch_pipeline.py` with its JAX-only branches deleted:
+an explicit `torch.device` and the port's `TorchGenotyper`. `devices`, as in
+the JAX package, lists the devices phase B and the device PLs run on: None
+means every visible CUDA device when `device` is a CUDA device (one on a
+one-card host, where the run is the one-device run), else `[device]`. With
+more than one entry the executor builds a mesh (parallel/mesh.py; the same
+card may repeat, each entry on its own stream), passes it to the genotyper,
+whose pass 1 and pass 2 are then sharded over it, and splits phase C's PL
+rows over it; records are those of the one-device run.
 
   phase A  prep coordinator and fork workers (core/prep_worker.py), or with
            prep_mode 'threads' (also 'auto' on a host without fork) the
@@ -14,12 +20,12 @@ The JAX package's `core/batch_pipeline.py` with its JAX-only branches deleted
   phase B  per window batch: pools uploaded, pass-1 span launched (async);
            the previous batch's pass 2 and phase C run while it executes
   phase C  evidence assembly, VariantCall with float64 DM PLs (on a CUDA
-           device through ops/genotype.py, else on the host), ordered VCF
-           flush
+           device or over the mesh through ops/genotype.py, else on the
+           host), ordered VCF flush
 
 No CUDA call happens before the prep workers start: the coordinator is
-spawned, and it forks the workers. Prep threads fork nothing and never touch
-the device.
+spawned, and it forks the workers; the devices are resolved after that.
+Prep threads fork nothing and never touch the device.
 """
 
 from __future__ import annotations
@@ -62,6 +68,21 @@ DEFAULT_WINDOW_BATCH = 64
 LOOKAHEAD = 3  # window batches queued to the prep workers
 
 
+def resolve_devices(device, devices=None) -> list[torch.device]:
+    """The run's device list: `devices` checked entry by entry, or with
+    None every visible CUDA device (for a CUDA `device`) or `[device]`."""
+    if devices is None:
+        device = check_device(device)
+        if device.type == "cuda":
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [device]
+    devices = [check_device(d) for d in devices]
+    if not devices:
+        raise ValueError("devices: an empty list")
+    return devices
+
+
 def check_device(device: torch.device) -> torch.device:
     """Resolve the run's device; a CUDA device without a card raises."""
     device = torch.device(device)
@@ -92,8 +113,11 @@ class TorchBatchPipelineExecutor:
         band_margin: int | None = 96,
         total_hint: int | None = None,
         prep_mode: str = "auto",
+        devices: list | None = None,
     ):
         self.device = torch.device(device)
+        self.devices = devices
+        self._mesh = None
         self.genotyper: TorchGenotyper | None = None
         self.params = params
         self.ref = ref
@@ -322,10 +346,12 @@ class TorchBatchPipelineExecutor:
     def _device_pl_tables(self, pending_rows) -> dict:
         """Batched DM PLs on the CUDA device for every (call, sample) of a
         window batch, grouped by allele count K, in float64: bit-equal to
-        the host engine (caller/likelihood.compute_genotype_pls).
-        Returns {row_index: {sample_name: pls}}; empty on the CPU, where
+        the host engine (caller/likelihood.compute_genotype_pls); with a
+        mesh, the rows split over its entries. Returns
+        {row_index: {sample_name: pls}}; empty on one CPU device, where
         VariantCall computes the same PLs per sample on the host."""
-        if self.device.type != "cuda" or not pending_rows:
+        if not pending_rows or (self._mesh is None
+                                and self.device.type != "cuda"):
             return {}
         by_k: dict[int, list[tuple[int, str, list[int]]]] = {}
         for row_idx, (_bi, _payload, variant, supports) in enumerate(pending_rows):
@@ -338,7 +364,8 @@ class TorchBatchPipelineExecutor:
         with self.stage_timer.stage("genotype_pls_device"):
             for k, rows in by_k.items():
                 counts = np.array([r[2] for r in rows], np.int64)
-                pls = batched_genotype_pls_exact(counts, k, self.device)
+                pls = batched_genotype_pls_exact(counts, k, self.device,
+                                                 mesh=self._mesh)
                 for (row_idx, sample_name, _c), pl_row in zip(rows, pls):
                     tables.setdefault(row_idx, {})[sample_name] = pl_row
         return tables
@@ -365,8 +392,16 @@ class TorchBatchPipelineExecutor:
             return seqs
 
         try:
-            self.device = check_device(self.device)
-            genotyper = self.genotyper = TorchGenotyper(self.device)
+            devices = resolve_devices(self.device, self.devices)
+            self.device = devices[0]
+            if len(devices) > 1:
+                from lancet2_tpu_torch.parallel.mesh import make_mesh
+
+                self._mesh = make_mesh(devices)
+                LOG.info("devices: %s, a mesh of %d entries",
+                         ", ".join(map(str, devices)), len(devices))
+            genotyper = self.genotyper = TorchGenotyper(self.device,
+                                                        mesh=self._mesh)
             batch_iter = self._batches()
             pending: deque = deque()
 
@@ -561,4 +596,6 @@ class TorchBatchPipelineExecutor:
             "wall_profile": wall_report,
             "pass2": dict(genotyper.pass2_stats),
             "device": str(self.device),
+            "devices": [str(d) for d in (self._mesh.devices if self._mesh
+                                         else [self.device])],
         }

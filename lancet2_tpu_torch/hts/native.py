@@ -7,21 +7,76 @@ utils/native_build.py) and exposes:
   bgzf_inflate(raw: bytes) -> bytes        parallel libdeflate inflation
   parse_records(buf, off)  -> dict of numpy columnar arrays + pools
 
-Falls back silently when the toolchain is unavailable — hts.bam keeps its
-pure-Python path as the correctness baseline.
+The build tries, in order: the system's libdeflate header and `-ldeflate`;
+the port's declaration of the three libdeflate functions the decoder calls
+(csrc/libdeflate_decl/libdeflate.h, for a host with the library but not its
+header) with `-ldeflate`; the same with the runtime library's soname
+(`-l:libdeflate.so.0`, for a host without the unversioned link). When every
+attempt fails, hts.bam decodes in Python, the correctness baseline: the
+failure is logged once, and `build_error()` returns the compiler's messages.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+import subprocess
 
 import numpy as np
 
+from lancet2_tpu_torch.utils.logging import get_logger
 from lancet2_tpu_torch.utils.native_build import build_library
 
+LOG = get_logger("native")
+
+_DECL_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc",
+    "libdeflate_decl")
+BUILD_ATTEMPTS = (
+    ("system header, -ldeflate", ("-ldeflate",)),
+    ("port declaration, -ldeflate", ("-I", _DECL_DIR, "-ldeflate")),
+    ("port declaration, libdeflate.so.0",
+     ("-I", _DECL_DIR, "-l:libdeflate.so.0")),
+)
 
 _lib = None
 _load_failed = False
+_build_log: list[tuple[str, str | None]] = []  # (attempt, error or None)
+
+
+def _error_text(exc: Exception) -> str:
+    if isinstance(exc, subprocess.CalledProcessError):
+        err = exc.stderr.decode(errors="replace") if exc.stderr else ""
+        return err.strip() or repr(exc)
+    return repr(exc)
+
+
+def _build():
+    """Load the decoder from the first build attempt that works."""
+    for name, flags in BUILD_ATTEMPTS:
+        try:
+            lib = ctypes.CDLL(build_library("bam_decoder.cpp", flags))
+        except (subprocess.CalledProcessError, OSError) as exc:
+            _build_log.append((name, _error_text(exc)))
+            continue
+        _build_log.append((name, None))
+        return lib
+    return None
+
+
+def build_error() -> str | None:
+    """The messages of every failed build attempt when no attempt loaded
+    (the decoder is then unavailable); None when one did or none ran."""
+    _ensure_lib()
+    if _lib is not None or not _build_log:
+        return None
+    return "\n".join(f"[{name}] {err}" for name, err in _build_log)
+
+
+def build_route() -> str | None:
+    """The build attempt that loaded the decoder, if any."""
+    _ensure_lib()
+    return next((name for name, err in _build_log if err is None), None)
 
 
 def _ensure_lib():
@@ -29,7 +84,14 @@ def _ensure_lib():
     if _lib is not None or _load_failed:
         return _lib
     try:
-        lib = ctypes.CDLL(build_library("bam_decoder.cpp", ("-ldeflate",)))
+        lib = _build()
+        if lib is None:
+            _load_failed = True
+            LOG.warning("native BAM decoder unavailable, decoding in "
+                        "Python: %s", "; ".join(
+                            f"[{n}] {e.splitlines()[-1] if e else e}"
+                            for n, e in _build_log))
+            return None
         lib.l2t_bgzf_inflate.restype = ctypes.c_int
         lib.l2t_bgzf_inflate.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t,
@@ -42,7 +104,8 @@ def _ensure_lib():
         lib.l2t_event_scan.restype = ctypes.c_int64
         lib.l2t_hash_batch.restype = None
         _lib = lib
-    except Exception:
+    except Exception as exc:
+        _build_log.append(("bind", _error_text(exc)))
         _load_failed = True
         _lib = None
     return _lib

@@ -14,7 +14,8 @@ the q_active / final_H masks and the first maximum for `free_target_ends`.
 
 Two entry points, numpy in and out, on an explicit torch device:
 
-  * align_scores_torch: score and t_end only;
+  * align_scores_torch: score and t_end only (`align_scores` is the same on
+    tensors, for the window step's scan route);
   * align_dirs_torch:   also the packed per-cell direction bytes [B, Lq, Lt]
     that ops/affine_dp.traceback_batch walks on the host.
 
@@ -167,11 +168,19 @@ def _inputs(queries, q_lens, targets, t_lens, device):
 
 
 @torch.inference_mode()
+def align_scores(queries, q_lens, targets, t_lens, p: AlignParams):
+    """Scores + end positions of tensors on one device (queries/targets
+    uint8, lens int32); returns int32 tensors there."""
+    score, t_end, _ = _align(queries, q_lens.to(_I32), targets,
+                             t_lens.to(_I32), p, with_dirs=False)
+    return score, t_end
+
+
 def align_scores_torch(queries, q_lens, targets, t_lens, p: AlignParams,
                        device="cuda"):
     """Scores + end positions only. Returns numpy int32 arrays."""
-    score, t_end, _ = _align(*_inputs(queries, q_lens, targets, t_lens,
-                                      device), p, with_dirs=False)
+    score, t_end = align_scores(*_inputs(queries, q_lens, targets, t_lens,
+                                         device), p)
     return score.cpu().numpy(), t_end.cpu().numpy()
 
 

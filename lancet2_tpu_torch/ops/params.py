@@ -35,12 +35,17 @@ class KernelParams:
                             self.gap_extend, self.conf.to(device))
 
 
+def kernel_fits(align_params: AlignParams) -> bool:
+    """The kernels run the fitting single-affine mode only."""
+    return not align_params.dual and align_params.free_target_ends
+
+
 def from_jax(align_params: AlignParams = READ_TO_HAP,
              conf_table=PHRED_TO_CONFIDENCE) -> KernelParams:
     """Turn a scoring dataclass (the fields match, mismatch, gap_open1,
     gap_extend1, dual, free_target_ends) and a 256-entry confidence table
     into KernelParams. Only the fitting single-affine mode is ported."""
-    if align_params.dual or not align_params.free_target_ends:
+    if not kernel_fits(align_params):
         raise NotImplementedError(
             "the evidence DP covers the fitting single-affine mode only")
     conf = np.asarray(conf_table, np.float32)

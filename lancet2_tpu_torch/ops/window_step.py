@@ -8,15 +8,20 @@ batch of windows end to end:
           hap_allele [W, H] allele index per haplotype (0 = REF hap)
           read_sample [W, R] sample index per read, read_valid [W, R]
 
-  compute 1. fitting DP scores of every (read, hap) pair through K3
+  compute 1. DP scores of every (read, hap) pair: through K3
              (ops/sw_cuda.fitting_scores: the CUDA kernel on a CUDA device,
-             its plain version on the CPU)
+             its plain version on the CPU) or through the dirs engine's
+             score pass (ops/affine_dp_torch.py), per `dp_backend`
           2. allele assignment = argmax over haplotype scores
           3. per-(window, sample, allele) depth counts, a one-hot einsum
           4. Dirichlet-Multinomial PLs + GQ per (window, sample), float32
 
-Outputs keep the JAX step's dict keys and layouts. The JAX step's choice
-between a Pallas and an XLA-scan engine is gone: K3 takes any shape.
+Outputs keep the JAX step's dict keys and layouts. `dp_backend` keeps the
+JAX step's choice of engine under the port's names: 'kernel' (the JAX
+package's 'pallas') is K3, which covers the fitting single-affine mode;
+'scan' (the XLA lax.scan engine there) is `align_scores` of the dirs
+engine, any AlignParams; 'auto' takes the kernel when the params fit its
+mode and the scan otherwise, on every device.
 """
 
 from __future__ import annotations
@@ -25,11 +30,13 @@ import numpy as np
 import torch
 
 from lancet2_tpu_torch.ops.affine_dp import READ_TO_HAP, AlignParams
+from lancet2_tpu_torch.ops.affine_dp_torch import align_scores
 from lancet2_tpu_torch.ops.genotype import batched_genotype_pls
-from lancet2_tpu_torch.ops.params import from_jax
+from lancet2_tpu_torch.ops.params import from_jax, kernel_fits
 from lancet2_tpu_torch.ops.sw_cuda import fitting_scores
 
 _BAND_Q = 64  # band-start quantization, as the JAX step's lane blocks
+DP_BACKENDS = ("auto", "kernel", "scan")
 
 
 def _extract_band(t, tl, ro, L: int, margin: int):
@@ -77,7 +84,8 @@ def window_pairs(reads, read_lens, haps, hap_lens, read_offset=None,
 def make_window_step(num_samples: int, num_alleles: int,
                      params: AlignParams = READ_TO_HAP,
                      device: torch.device | str = "cuda",
-                     band_margin: int | None = None):
+                     band_margin: int | None = None,
+                     dp_backend: str = "auto"):
     """Build the window-batch step function for `device` (a CUDA device
     unless the caller asks for the CPU). Its inputs may be numpy arrays or
     tensors; they are moved to the device, and the outputs stay there.
@@ -86,10 +94,23 @@ def make_window_step(num_samples: int, num_alleles: int,
     (each read's expected start inside the window) and runs the DP over a
     banded target window of roundup(L+2*margin, 128) columns instead of the
     full haplotype — exact whenever the optimal path stays inside the band.
-    Only the fitting single-affine mode is ported (other params raise).
+
+    dp_backend: 'kernel' (K3; params outside its mode raise
+    NotImplementedError), 'scan' (the dirs engine's score pass, any params)
+    or 'auto' (the kernel when `kernel_fits(params)`, else the scan).
     """
+    if dp_backend not in DP_BACKENDS:
+        raise ValueError(f"dp_backend must be one of {DP_BACKENDS}, "
+                         f"got {dp_backend!r}")
     device = torch.device(device)
-    kp = from_jax(params).to(device)
+    use_kernel = dp_backend == "kernel" or (
+        dp_backend == "auto" and kernel_fits(params))
+    kp = from_jax(params).to(device) if use_kernel else None
+
+    def scores_of(q, ql, t, tl):
+        if use_kernel:
+            return fitting_scores(q, ql, t, tl, kp)[0]
+        return align_scores(q, ql, t, tl, params)[0]
 
     def as_dev(x, dtype):
         return torch.as_tensor(x).to(device=device, dtype=dtype)
@@ -107,9 +128,8 @@ def make_window_step(num_samples: int, num_alleles: int,
         H = haps.shape[1]
         if read_offset is not None:
             read_offset = as_dev(read_offset, torch.int32)
-        scores, _t_end = fitting_scores(
-            *window_pairs(reads, read_lens, haps, hap_lens, read_offset,
-                          band_margin), kp)
+        scores = scores_of(*window_pairs(reads, read_lens, haps, hap_lens,
+                                         read_offset, band_margin))
         scores = scores.reshape(W, R, H)
 
         # allele assignment: best haplotype per read (mask invalid reads)

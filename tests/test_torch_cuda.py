@@ -207,3 +207,111 @@ def test_tuple_form_two_pass_on_card_matches_cpu_one_pass():
     assert ov.any() and card.pass2_stats["pass2"] > 0
     for k in REGION_FILL:
         np.testing.assert_array_equal(got[k][ov], want[k][ov], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_sharded_dispatch_on_card_matches_one_device():
+    """The sharded span and evidence dispatches (parallel/evidence_spmd.py)
+    over [cuda:0] * 2, two streams on one card, equal one launch each on
+    the card; 301 pairs, so the shards are padded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lancet2_tpu_torch.ops.evidence_fused import (
+        DevicePools,
+        evidence_indexed_submit,
+        span_indexed_submit,
+    )
+    from lancet2_tpu_torch.parallel import evidence_spmd as spmd
+    from lancet2_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    kp = READ_TO_HAP_PARAMS.to(dev)
+    n, Lt = 301, 256
+    q, qu, q_lens, t, t_lens, regions = _pairs(720, n, 150, Lt, 2)
+    pools = (q, qu, q_lens, t)  # pair b: read b against haplotype b
+    ix = np.arange(n)
+    bst = np.zeros(n, np.int64)
+    one = DevicePools(*pools, dev)
+    mesh = make_mesh([dev, dev])
+    reps = spmd.replicate_pools(mesh, *pools)
+    want = ec.span_pairs_finalize(span_indexed_submit(one, ix, ix, bst,
+                                                      t_lens, Lt, kp))
+    got = spmd.span_indexed_sharded(mesh, reps, ix, ix, bst, t_lens, Lt, kp)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    want = ec.evidence_pairs_finalize(*evidence_indexed_submit(
+        one, ix, ix, bst, t_lens, regions, Lt, 2, kp), 2)
+    got = spmd.evidence_indexed_sharded(mesh, reps, ix, ix, bst, t_lens,
+                                        regions, Lt, 2, kp)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_float32_pls_on_card_match_cpu():
+    """The window step's float32 DM PLs (ops/lgamma_f32.py) on the card equal
+    the CPU's bit for bit: PLs, GQ and best genotype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lancet2_tpu_torch.ops.genotype import batched_genotype_pls
+    from lancet2_tpu_torch.ops.lgamma_f32 import lgamma_f32
+
+    rng = np.random.default_rng(730)
+    for K in (2, 3, 4):
+        counts = torch.from_numpy(np.concatenate([
+            rng.integers(0, 60, (500, K)), rng.integers(0, 3000, (500, K)),
+            np.zeros((4, K), np.int64)]))
+        got = batched_genotype_pls(counts.cuda(), K)
+        want = batched_genotype_pls(counts, K)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    grid = torch.arange(0, 50, 2.5e-4, dtype=torch.float32)
+    assert torch.equal(lgamma_f32(grid.cuda()).cpu().view(torch.int32),
+                       lgamma_f32(grid).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_device_graph_build_on_card_matches_cpu():
+    """The tape and one-window graph passes on the card equal their CPU runs
+    array for array, on a simulated 1.2 kb window at k 13 and 25."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lancet2_tpu_torch.base.dna import encode
+    from lancet2_tpu_torch.cbdg.read import Read
+    from lancet2_tpu_torch.ops.graph_tape import build_graphs_tape
+    from lancet2_tpu_torch.ops.graph_tpu import build_graph_device
+    from lancet2_tpu_torch.utils.simulate import (
+        ReadSimulator,
+        Variant,
+        random_reference,
+    )
+
+    ref = random_reference(1200, seed=31)
+    sim = ReadSimulator(ref, "chrT", seed=32)
+
+    class _W:
+        def __init__(self):
+            self.records = []
+
+        def add(self, rec):
+            self.records.append(rec)
+
+    w = _W()
+    alt = "A" if ref[600] != "A" else "C"
+    sim.simulate([Variant(600, ref[600], alt, vaf=0.4)], 40.0, w)
+    reads = [Read.from_bam(r, "TUMOR", 4, 1) for r in w.records]
+    for k in (13, 25):
+        seqs, quals, meta = [encode(ref)], [None], [(1, -1, 0, 0)]
+        for r in reads:
+            if r.passes_aln_filters and len(r.codes) >= k + 1:
+                seqs.append(r.codes)
+                quals.append(r.qual)
+                meta.append((r.tag, r.sample_index, r.tag, r.qname_hash))
+        got = build_graphs_tape([(seqs, quals, meta)], k, 2, "cuda")[0]
+        want = build_graphs_tape([(seqs, quals, meta)], k, 2, "cpu")[0]
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        got = build_graph_device(seqs, quals, meta, k, 2, "cuda")
+        want = build_graph_device(seqs, quals, meta, k, 2, "cpu")
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)

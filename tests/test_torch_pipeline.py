@@ -25,6 +25,14 @@ from lancet2_tpu_torch.cli.main import build_parser
 from lancet2_tpu_torch.core.batch_pipeline import check_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# modules of the multi-device path and the device graph build, held by the
+# import checks below by name
+NEW_MODULES = ("lancet2_tpu_torch.parallel.mesh",
+               "lancet2_tpu_torch.parallel.evidence_spmd",
+               "lancet2_tpu_torch.ops.graph_tpu",
+               "lancet2_tpu_torch.ops.graph_tape",
+               "lancet2_tpu_torch.ops.lgamma_f32",
+               "lancet2_tpu_torch.graft_entry")
 
 _RUN_PORT = """
 import json, runpy, sys
@@ -93,16 +101,18 @@ def test_port_pipeline_matches_jax_batch_executor(fixture):
 
 
 def test_cli_rejects_unsupported_options(fixture):
-    from lancet2_tpu_torch.cli.main import run_pipeline
+    from lancet2_tpu_torch.cli.main import graph_build_device
 
     tmp, fx = fixture
     base = ["pipeline", "-n", fx["normal"], "-r", fx["fasta"],
             "-o", str(tmp / "x.vcf.gz"), "--device", "cpu"]
-    for extra in ([], ["--executor", "threads"]):
+    # --graph-backend device is supported: it builds on the run's device
+    # under the threads executor, and on the CPU under the batch executor,
+    # whose forked prep workers must never touch CUDA
+    for extra, want in (([], "cpu"), (["--executor", "threads"], "cuda")):
         args = build_parser().parse_args(
-            base + extra + ["--graph-backend", "device"])
-        with pytest.raises(SystemExit, match="--graph-backend device"):
-            run_pipeline(args, "test")
+            base[:-2] + extra + ["--graph-backend", "device"])
+        assert graph_build_device(args) == want
     with pytest.raises(SystemExit):  # argparse: tpu is not a port device
         build_parser().parse_args(base + ["--device", "tpu"])
     args = build_parser().parse_args(base[:-2])
@@ -143,9 +153,13 @@ def test_port_modules_import_without_jax():
         "import lancet2_tpu_torch.cli.main, lancet2_tpu_torch.core.prep_worker\n"
         "assert 'torch' not in sys.modules, 'cli/prep import torch eagerly'\n"
         "import lancet2_tpu_torch\n"
+        "walked = set()\n"
         "for m in pkgutil.walk_packages(lancet2_tpu_torch.__path__,\n"
         "                               'lancet2_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    walked.add(m.name)\n"
+        f"missing = set({NEW_MODULES!r}) - walked\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'lancet2_tpu')]\n"
         "assert not bad, bad\n"
@@ -165,6 +179,9 @@ def test_port_sources_import_no_jax():
 
     files = sorted(pathlib.Path(ROOT, "lancet2_tpu_torch").rglob("*.py"))
     files.append(pathlib.Path(ROOT, "chip_smoke.py"))
+    rel = {str(p.relative_to(ROOT)) for p in files}
+    for name in NEW_MODULES:
+        assert name.replace(".", "/") + ".py" in rel, name
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
