@@ -65,9 +65,23 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      counts, roles, edges, reference path, node order), ms per window of
      each; and the threads executor with --graph-backend device on phase
      5's region, its records equal to phase 5's;
- 13. the kernels' JSON line (K1/K2 also carry their launches on phase 9's
-     threads run and phase 11's mesh run, K3 on phase 11's sharded step),
-     the card line, and the result line last.
+ 13. the pipeline options on the card: --stream-windows on over the whole
+     1 Mb fixture, its records byte-identical to phase 4's (windows/s of
+     both printed); the window manifest of an all-N contig of more than
+     131072 windows through the CLI in a process of its own, where
+     --stream-windows auto must switch streaming on by itself, every window
+     must end SKIPPED_NONLY_REF_BASES and peak RSS may grow by less than
+     400 MB; and on a 30 kb fixture at the 1 Mb fixture's depth and seed:
+     CRAM inputs (gzip and rans4x8, converted by the port's `cram` and
+     indexed by its `index`), --stream-bam and a checkpoint resume (from a
+     cursor the run saved part-way through, with the VCF as it then stood
+     on disk) each write the records of the run with no option, and
+     --read-filter, --no-active-region, --extract-pairs and a three-sample
+     run (-s path:case) on a 5-window region write on cuda the records of a
+     cpu run of the same option; K1 and K2 must launch in every cuda run;
+ 14. the kernels' JSON line (K1/K2 also carry their launches on phase 9's
+     threads run, phase 11's mesh run and phase 13's option runs, K3 on
+     phase 11's sharded step), the card line, and the result line last.
 
 Without a CUDA device it exits non-zero before printing any result. Inputs
 are made from seeds; the fixture is cached under .smoke_cache/ (gitignored).
@@ -104,6 +118,13 @@ STEP = dict(num_windows=16, reads_per_window=128, read_len=128, num_haps=4,
 STEP_MARGIN, STEP_REPS = 64, 5
 SCAN_WINDOWS = 4  # phase 7: windows of the step batch run through the scan
 GRAPH_WINDOWS = 200  # phase 12: windows of the 1 Mb fixture
+# phase 13: the options fixture (kb; the 1 Mb fixture's depth and seed), a
+# 5-window region of it, windows per batch of the checkpointed run, and the
+# all-N manifest: more windows than the 131072 above which --stream-windows
+# auto streams, at the default window of 1000 and step of 800
+OPT_KB, OPT_REGION, OPT_CKPT_BATCH = 30, "chrS:10001-13600", 8
+MANIFEST_WINDOWS, STREAM_AUTO_ABOVE = 135_000, 131_072
+MANIFEST_RSS_LIMIT_MB = 400  # tests/test_streaming_soak.py's bound
 # phase 9: the dirs engine's chunk (pairs x query bucket) and target buckets
 DIRS_CHUNK, DIRS_LQ, DIRS_LTS = 512, 160, (1024, 1536, 2048)
 
@@ -538,15 +559,21 @@ def vcf_records(path: str) -> list[str]:
         return [l for l in fh.read().splitlines() if l and not l.startswith("#")]
 
 
-def run_port(fx: dict, out_vcf: str, device: str, region=None,
-             extra=(), devices=None) -> dict:
-    from lancet2_tpu_torch.cli.main import build_parser, run_pipeline
-
+def port_argv(fx: dict, out_vcf: str, device: str, region=None,
+              extra=()) -> list[str]:
     argv = ["pipeline", "-n", fx["normal"], "-t", fx["tumor"],
             "-r", fx["fasta"], "-o", out_vcf, "--device", device,
             "-T", str(os.cpu_count() or 4), *extra]
     if region:
         argv += ["-R", region]
+    return argv
+
+
+def run_port(fx: dict, out_vcf: str, device: str, region=None,
+             extra=(), devices=None) -> dict:
+    from lancet2_tpu_torch.cli.main import build_parser, run_pipeline
+
+    argv = port_argv(fx, out_vcf, device, region, extra)
     return run_pipeline(build_parser().parse_args(argv),
                         "chip_smoke " + " ".join(argv), devices=devices)
 
@@ -818,6 +845,259 @@ def run_graph_build(fx: dict, cache: str, region5: str, recs5: list) -> None:
     log("phase 12: --graph-backend device records equal phase 5's")
 
 
+# the manifest run, in a process of its own so that its peak RSS is its own
+# (sampled from /proc/self/statm by tests/torch_options_jobs.PeakRss:
+# ru_maxrss would start at this process's peak, inherited at the fork, and
+# gVisor's /proc has no VmHWM); torch, the executor and the
+# CUDA context are loaded before sampling starts, so the growth is the run's
+MANIFEST_RUN = r"""
+import json, sys, time
+import torch
+torch.zeros(1, device="cuda")
+import lancet2_tpu_torch.core.batch_pipeline
+from lancet2_tpu_torch.cli.main import build_parser, run_pipeline
+from torch_options_jobs import PeakRss
+
+argv = json.loads(sys.argv[1])
+rss = PeakRss()
+t0 = time.monotonic()
+stats = run_pipeline(build_parser().parse_args(argv), "chip_smoke manifest")
+seconds = time.monotonic() - t0
+print(json.dumps({"seconds": seconds, "windows": stats["windows"],
+                  "status_counts": stats["status_counts"],
+                  "rss_growth_mb": rss.stop(),
+                  "rss_before_mb": rss.start_mb}))
+"""
+
+
+def all_n_manifest(cache: str) -> tuple[str, str]:
+    """An all-N contig of MANIFEST_WINDOWS windows (FASTA and .fai) and an
+    empty BAM whose header names it at its length."""
+    from lancet2_tpu_torch.hts.bam import BamWriter
+    from lancet2_tpu_torch.hts.fasta import write_fai
+
+    length = 800 * (MANIFEST_WINDOWS - 1) + 1000
+    fasta = os.path.join(cache, f"all_n_{MANIFEST_WINDOWS}.fa")
+    bam = os.path.join(cache, f"all_n_{MANIFEST_WINDOWS}.bam")
+    if not os.path.exists(fasta + ".fai"):
+        line = "N" * 60 + "\n"
+        with open(fasta, "w") as fh:
+            fh.write(">chrN\n" + line * (length // 60))
+            if length % 60:
+                fh.write("N" * (length % 60) + "\n")
+        write_fai(fasta)
+        BamWriter(bam, [("chrN", length)], sample_name="S1").close()
+    return fasta, bam
+
+
+def options_fixture(cache: str) -> dict:
+    """Phase 13's fixture: OPT_KB kb at the 1 Mb fixture's depth and seed
+    (planted SNVs and indels every ~1.9 kb), and a second case sample at the
+    tumor's depth carrying every other planted variant."""
+    from lancet2_tpu_torch.hts.bam import BamWriter
+    from lancet2_tpu_torch.hts.fasta import Reference
+    from lancet2_tpu_torch.utils.simulate import (
+        ReadSimulator,
+        Variant,
+        make_chr_scale_fixture,
+    )
+
+    fx = dict(make_chr_scale_fixture(OPT_KB, cache))
+    fx["tumor2"] = os.path.join(os.path.dirname(fx["tumor"]), "tumor2.bam")
+    if not os.path.exists(fx["tumor2"]):
+        ref_seq = Reference(fx["fasta"]).fetch(fx["chrom"], 1, fx["ref_len"])
+        w = BamWriter(fx["tumor2"], [(fx["chrom"], fx["ref_len"])],
+                      sample_name="TUMOR2")
+        ReadSimulator(ref_seq, fx["chrom"], seed=14).simulate(
+            [Variant(p, r, a, vaf=0.35) for p, r, a in fx["truth"][1::2]],
+            60, w, qname_prefix="u")
+        w.close()
+    return fx
+
+
+def run_options(fx_1mb: dict, cache: str, recs_1mb: list,
+                stats_1mb: dict) -> dict:
+    """Phase 13: the pipeline options on the card. Returns the launches of
+    its cuda runs."""
+    import shutil
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_options_jobs as jobs
+
+    from lancet2_tpu_torch.cli.main import main as port_main
+    from lancet2_tpu_torch.ops import _build
+
+    t_phase = time.monotonic()
+    launches = {"span": 0, "evidence": 0}
+
+    def on_cuda(what: str, fn):
+        """Run fn with the counts set to 0; both kernels must launch."""
+        _build.reset_launches()
+        out = fn()
+        got = dict(_build.LAUNCHES)
+        if got["span"] == 0 or got["evidence"] == 0:
+            raise AssertionError(f"phase 13: {what} did not launch both "
+                                 f"kernels on cuda: {got}")
+        for k in launches:
+            launches[k] += got[k]
+        return out, got
+
+    path = os.path.join(cache, "smoke_1mb_stream.vcf.gz")
+    st, got = on_cuda("--stream-windows on", lambda: run_port(
+        fx_1mb, path, "cuda", None, ["--stream-windows", "on"]))
+    log(f"phase 13: --stream-windows on, 1 Mb: {st['windows']} windows in "
+        f"{st['runtime_s']:.2f} s = {st['windows_per_s']:.3f} windows/s "
+        f"(phase 4: {stats_1mb['windows_per_s']:.3f}); launches "
+        f"{json.dumps(got)}")
+    if st["windows"] != stats_1mb["windows"] or vcf_records(path) != recs_1mb:
+        raise AssertionError("--stream-windows on: records differ from "
+                             "phase 4's")
+    log("phase 13: streamed and phase 4 records are byte-identical")
+
+    t0 = time.monotonic()
+    fasta, bam = all_n_manifest(cache)
+    made_s = time.monotonic() - t0
+    argv = ["pipeline", "-n", bam, "-r", fasta, "-o",
+            os.path.join(cache, "smoke_manifest.vcf.gz"), "--device", "cuda",
+            "-T", str(os.cpu_count() or 4)]
+    proc = subprocess.run(
+        [sys.executable, "-c", MANIFEST_RUN, json.dumps(argv)],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [ROOT, os.path.join(ROOT, "tests")])), cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError("phase 13: the manifest run failed:\n"
+                             + proc.stderr[-4000:])
+    man = json.loads(proc.stdout.strip().splitlines()[-1])
+    streamed = [l for l in proc.stderr.splitlines() if "streaming ~" in l]
+    log(f"phase 13: all-N manifest ({made_s:.1f} s to write): "
+        f"{man['windows']} windows in {man['seconds']:.2f} s = "
+        f"{man['windows'] / man['seconds']:.1f} windows/s; RSS "
+        f"{man['rss_before_mb']:.1f} MB at the start, peak growth "
+        f"{man['rss_growth_mb']:.1f} MB; status "
+        f"{json.dumps(man['status_counts'])}; "
+        f"{streamed[0].split('] ')[-1] if streamed else 'not streamed'}")
+    if not streamed:
+        raise AssertionError("phase 13: --stream-windows auto did not stream "
+                             "the manifest")
+    if man["windows"] <= STREAM_AUTO_ABOVE or man["status_counts"] != {
+            "SKIPPED_NONLY_REF_BASES": man["windows"]}:
+        raise AssertionError(f"phase 13: manifest: {man['windows']} windows, "
+                             f"{man['status_counts']}")
+    if man["rss_growth_mb"] >= MANIFEST_RSS_LIMIT_MB:
+        raise AssertionError(f"phase 13: the streamed manifest grew peak RSS "
+                             f"by {man['rss_growth_mb']:.1f} MB")
+
+    t0 = time.monotonic()
+    fx = options_fixture(cache)
+    odir = os.path.join(cache, "options")
+    os.makedirs(odir, exist_ok=True)
+    log(f"phase 13: {OPT_KB} kb options fixture ready in "
+        f"{time.monotonic() - t0:.1f} s")
+
+    def out(name):
+        return os.path.join(odir, f"{name}.vcf.gz")
+
+    st, got = on_cuda("the run with no option",
+                      lambda: run_port(fx, out("base"), "cuda"))
+    base = vcf_records(out("base"))
+    log(f"phase 13: {OPT_KB} kb, no option: {st['windows']} windows, "
+        f"{len(base)} records, {st['runtime_s']:.2f} s; launches "
+        f"{json.dumps(got)}")
+    if not base:
+        raise AssertionError("phase 13: the options fixture called nothing")
+
+    def same_as_base(name, st, got):
+        recs = vcf_records(out(name))
+        log(f"phase 13: {name}: {st['windows']} windows, {len(recs)} records, "
+            f"{st['runtime_s']:.2f} s; launches {json.dumps(got)}")
+        if recs != base:
+            raise AssertionError(f"phase 13: {name}: records differ from the "
+                                 f"run with no option")
+
+    for codec in ("gzip", "rans4x8"):
+        t0 = time.monotonic()
+        crams = {}
+        for s in ("normal", "tumor"):
+            crams[s] = os.path.join(odir, f"{s}.{codec}.cram")
+            if port_main(["cram", fx[s], "-r", fx["fasta"], "-o", crams[s],
+                          "--codec", codec]) != 0 or \
+                    port_main(["index", crams[s]]) != 0:
+                raise AssertionError(f"phase 13: cram/index {codec} failed")
+        conv_s = time.monotonic() - t0
+        st, got = on_cuda(f"CRAM {codec}", lambda: run_port(
+            dict(fx, **crams), out(f"cram_{codec}"), "cuda"))
+        log(f"phase 13: {codec} CRAMs converted and indexed in {conv_s:.1f} s")
+        same_as_base(f"cram_{codec}", st, got)
+
+    sdir = os.path.join(odir, "stream")
+    os.makedirs(sdir, exist_ok=True)
+    copies = {}
+    for s in ("normal", "tumor"):
+        copies[s] = os.path.join(sdir, f"{s}.bam")
+        shutil.copyfile(fx[s], copies[s])
+        if os.path.exists(copies[s] + ".bai"):
+            os.unlink(copies[s] + ".bai")
+    st, got = on_cuda("--stream-bam", lambda: run_port(
+        dict(fx, **copies), out("stream_bam"), "cuda", None,
+        ["--stream-bam"]))
+    if not all(os.path.exists(p + ".bai") for p in copies.values()):
+        raise AssertionError("phase 13: --stream-bam built no index")
+    same_as_base("stream_bam", st, got)
+
+    for p in (out("ckpt"), out("ckpt") + ".ckpt", out("resume")):
+        if os.path.exists(p):
+            os.unlink(p)
+    ck, got = on_cuda("--checkpoint", lambda: jobs.run_checkpoint(
+        port_argv(fx, out("ckpt"), "cuda", None, ["--checkpoint"]),
+        OPT_CKPT_BATCH, os.path.join(odir, "saves")))
+    saves = ck["saves"]
+    if len(saves) < 2 or os.path.exists(out("ckpt") + ".ckpt"):
+        raise AssertionError(f"phase 13: checkpoint: {len(saves)} cursors "
+                             f"saved, .ckpt left after the run")
+    same_as_base("ckpt", ck, got)
+    save = saves[len(saves) // 2]
+    res, got = on_cuda("the resume", lambda: jobs.run_cli(jobs.prepare_resume(
+        save, port_argv(fx, out("resume"), "cuda", None, ["--checkpoint"]))))
+    if os.path.exists(out("resume") + ".ckpt") or not any(
+            m.startswith("resuming at cursor") for m in res["log"]):
+        raise AssertionError("phase 13: the resume did not resume, or left "
+                             "its .ckpt")
+    log(f"phase 13: checkpoint: cursors {[s['cursor'] for s in saves]}; "
+        f"resumed at {save['cursor']} from a VCF of "
+        f"{len(vcf_records(save['vcf']))} records")
+    same_as_base("resume", res, got)
+
+    for name, extra in (
+            ("read_filter", ["--read-filter", "!flag.reverse && mapq >= 30"]),
+            ("no_active_region", ["--no-active-region"]),
+            ("extract_pairs", ["--extract-pairs"]),
+            ("three_samples", ["-s", f"{fx['tumor2']}:case"])):
+        recs = {}
+        for device in ("cuda", "cpu"):
+            path = out(f"{name}_{device}")
+            if device == "cuda":
+                st, got = on_cuda(name, lambda: run_port(
+                    fx, path, "cuda", OPT_REGION, extra))
+            else:
+                st, got = run_port(fx, path, "cpu", OPT_REGION, extra), {}
+            recs[device] = vcf_records(path)
+            log(f"phase 13: {name} on {device}, {OPT_REGION}: "
+                f"{st['windows']} windows, {len(recs[device])} records, "
+                f"{st['runtime_s']:.2f} s; status "
+                f"{json.dumps(st['status_counts'])}; launches "
+                f"{json.dumps(got)}")
+        if recs["cuda"] != recs["cpu"] or not recs["cuda"]:
+            raise AssertionError(f"phase 13: {name}: cuda and cpu records "
+                                 f"differ")
+        if name == "three_samples" and len(recs["cuda"][0].split("\t")) != 12:
+            raise AssertionError("phase 13: three_samples: not three sample "
+                                 "columns")
+    log(f"phase 13: every option equals its reference; launches "
+        f"{json.dumps(launches)}; {time.monotonic() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -931,6 +1211,7 @@ def main() -> int:
     thr_launches = run_threads(fx, cache, recs, region, got["cuda"])
     mesh_launches = run_multi_device(fx, cache, recs)
     run_graph_build(fx, cache, region, got["cuda"])
+    opt_launches = run_options(fx, cache, recs, stats)
 
     clock_hz = card_clock_hz()
     log(f"phase 10: bounds at {clock_hz / 1e6:.0f} MHz x {sms} SMs x "
@@ -952,6 +1233,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[launch_key],
             "launches_threads": thr_launches[launch_key],
             "launches_mesh": mesh_launches[launch_key],
+            "launches_options": opt_launches[launch_key],
             "max_abs_err": max(errs), "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,

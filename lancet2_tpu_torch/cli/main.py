@@ -416,6 +416,8 @@ def run_pipeline(args, command_line: str, devices: list | None = None
         )
 
     out = BgzfWriter(args.out_vcfgz)
+    if ckpt is not None:
+        ckpt.sync = out.sync  # each cursor only after the records it covers
     try:
         out.write(header.encode())
         for rec in prefix_records:

@@ -22,8 +22,16 @@ import os
 class CheckpointFile:
     def __init__(self, path: str):
         self.path = path
+        # set by the CLI to the VCF writer's sync: run before each cursor is
+        # written, it makes the records the cursor covers durable first. The
+        # executors flush records into the writer's buffer; a cursor saved
+        # ahead of them would drop them on resume (neither recovered from
+        # the file nor regenerated, their windows lying before the cursor)
+        self.sync = None
 
     def save(self, cursor_chrom_index: int, cursor_pos1: int, done: int) -> None:
+        if self.sync is not None:
+            self.sync()
         tmp = self.path + ".tmp"
         with open(tmp, "w") as fh:
             json.dump(

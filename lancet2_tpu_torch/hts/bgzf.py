@@ -114,6 +114,12 @@ class BgzfWriter(io.RawIOBase):
             self._fh.write(_make_block(bytes(self._buf), self._level))
             self._buf.clear()
 
+    def sync(self) -> None:
+        """Hand everything written so far to the operating system, as whole
+        blocks: a reader of the file sees it even if this process dies."""
+        self.flush_block()
+        self._fh.flush()
+
     def close(self) -> None:
         if self.closed:
             return
