@@ -43,9 +43,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      (caller/likelihood.py) on a sweep of K 2-4 and depths 0-3000: no
      mismatch allowed, as the batch executor's phase C relies on them;
   9. the threads executor on the card: with the evidence backend and -T =
-     host cores over the 1 Mb fixture (K1 and K2 must both launch;
-     windows/s and launches per window printed), its records byte-identical
-     to phase 4's (the batch executor's); the jax (dirs engine) and numpy
+     host cores over the first 160 kb of the 1 Mb fixture (~200 windows;
+     K1 and K2 must both launch; windows/s and launches per window
+     printed), its records byte-identical to the batch executor's on the
+     same region; the jax (dirs engine) and numpy
      backends and the batch executor with --prep-mode threads on phase 5's
      region, each byte-identical to phase 5's records, with times and peak
      device memory; and the dirs engine's time and peak memory per 512-pair
@@ -79,9 +80,26 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      --read-filter, --no-active-region, --extract-pairs and a three-sample
      run (-s path:case) on a 5-window region write on cuda the records of a
      cpu run of the same option; K1 and K2 must launch in every cuda run;
- 14. the kernels' JSON line (K1/K2 also carry their launches on phase 9's
-     threads run, phase 11's mesh run and phase 13's option runs, K3 on
-     phase 11's sharded step), the card line, and the result line last.
+ 14. cloud inputs, prep-process faults and the golden VCF on the card,
+     batch executor, K1 and K2 launched in every run: phase 13's 30 kb
+     BAMs served over http by a loopback server to forked prep workers,
+     and read from s3:// (an in-memory transport registered in this
+     process, so prep takes threads and logs why) with the VCF written to
+     s3://, each writing phase 13's no-option records; a prep worker
+     SIGKILLed once a payload has arrived (the run raises naming a window
+     seq, no /dev/shm segment of the run is left), the coordinator
+     SIGKILLed at once and once a payload has arrived (detected; no
+     segment left by the orphaned workers), and a coordinator, a worker
+     and a prep thread whose setup fails (each reported with its
+     traceback), each raising within 60 s;
+     then a clean run in this process writes the no-option records; and
+     tests/test_truth_harness.py's golden fixture writes the record lines
+     of tests/data/golden_somatic.vcf. Worker pids come from /proc/N/stat;
+     /proc/PID/task/PID/children is printed beside them;
+ 15. the kernels' JSON line (K1/K2 also carry their launches on phase 9's
+     threads run, phase 11's mesh run, phase 13's option runs and phase
+     14's runs, K3 on phase 11's sharded step), the card line, and the
+     result line last.
 
 Without a CUDA device it exits non-zero before printing any result. Inputs
 are made from seeds; the fixture is cached under .smoke_cache/ (gitignored).
@@ -125,7 +143,11 @@ GRAPH_WINDOWS = 200  # phase 12: windows of the 1 Mb fixture
 OPT_KB, OPT_REGION, OPT_CKPT_BATCH = 30, "chrS:10001-13600", 8
 MANIFEST_WINDOWS, STREAM_AUTO_ABOVE = 135_000, 131_072
 MANIFEST_RSS_LIMIT_MB = 400  # tests/test_streaming_soak.py's bound
-# phase 9: the dirs engine's chunk (pairs x query bucket) and target buckets
+FAULT_DEADLINE_S = 60  # phase 14: a fault run still going after it hangs
+# phase 9: the threads executor's region of the 1 Mb fixture (kb from its
+# start, ~200 windows; the whole fixture took ~100 s), and the dirs engine's
+# chunk (pairs x query bucket) and target buckets
+THREADS_KB = 160
 DIRS_CHUNK, DIRS_LQ, DIRS_LTS = 512, 160, (1024, 1536, 2048)
 
 # The bound of a kernel: the larger of its int32 operations over the card's
@@ -594,8 +616,7 @@ def dirs_chunk(Lt: int):
             np.full(DIRS_CHUNK, Lt, np.int64))
 
 
-def run_threads(fx: dict, cache: str, recs_1mb: list, region5: str,
-                recs5: list) -> dict:
+def run_threads(fx: dict, cache: str, region5: str, recs5: list) -> dict:
     """Phase 9: the threads executor and the options that ride on it.
     Returns the threads run's launch counts."""
     import torch
@@ -604,17 +625,24 @@ def run_threads(fx: dict, cache: str, recs_1mb: list, region5: str,
     from lancet2_tpu_torch.ops.affine_dp import READ_TO_HAP
     from lancet2_tpu_torch.ops.affine_dp_torch import align_dirs_torch
 
+    region = f"{fx['chrom']}:1-{THREADS_KB * 1000}"
+    path = os.path.join(cache, "smoke_threads_batch.vcf.gz")
+    bst = run_port(fx, path, "cuda", region)
+    want = vcf_records(path)
+    log(f"phase 9: batch executor on {region}: {bst['windows']} windows in "
+        f"{bst['runtime_s']:.2f} s = {bst['windows_per_s']:.3f} windows/s; "
+        f"records {len(want)}")
     path = os.path.join(cache, "smoke_threads_evidence.vcf.gz")
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    st = run_port(fx, path, "cuda", None,
+    st = run_port(fx, path, "cuda", region,
                   ["--executor", "threads", "--aligner-backend", "evidence"])
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**20
     got = vcf_records(path)
     n = st["windows"]
     log(f"phase 9: threads executor, evidence, cuda, -T "
-        f"{os.cpu_count()}: {n} windows in "
+        f"{os.cpu_count()}, {region}: {n} windows in "
         f"{st['runtime_s']:.2f} s = {st['windows_per_s']:.3f} windows/s; "
         f"records {len(got)}; launches {json.dumps(launches)} = "
         f"{launches['span'] / max(n, 1):.3f} span and "
@@ -622,15 +650,14 @@ def run_threads(fx: dict, cache: str, recs_1mb: list, region5: str,
         f"peak device memory {peak:.1f} MiB")
     log("phase 9: threads stage profile (summed over workers) " + json.dumps(
         {k: v["seconds"] for k, v in st["stage_profile"].items()}))
-    if n != 1249 or not got:
+    if n != bst["windows"] or not got:
         raise AssertionError(f"threads run: {n} windows, {len(got)} records")
     if launches["span"] == 0 or launches["evidence"] == 0:
         raise AssertionError(f"the threads executor did not launch both "
                              f"kernels: {launches}")
-    if got != recs_1mb:
-        raise AssertionError("threads and batch records differ on the 1 Mb "
-                             "fixture")
-    log("phase 9: threads and batch (phase 4) records are byte-identical")
+    if got != want:
+        raise AssertionError(f"threads and batch records differ on {region}")
+    log(f"phase 9: threads and batch records are byte-identical on {region}")
 
     for what, extra in (
             ("jax", ["--executor", "threads", "--aligner-backend", "jax"]),
@@ -915,6 +942,27 @@ def options_fixture(cache: str) -> dict:
     return fx
 
 
+def counted_on_cuda(phase: int, launches: dict):
+    """A runner for phase `phase`'s cuda runs: on_cuda(what, fn) runs fn
+    with the launch counts set to 0, requires both K1 and K2 to have
+    launched, adds the counts to `launches` and returns (fn's result, the
+    counts)."""
+    from lancet2_tpu_torch.ops import _build
+
+    def on_cuda(what: str, fn):
+        _build.reset_launches()
+        out = fn()
+        got = dict(_build.LAUNCHES)
+        if got["span"] == 0 or got["evidence"] == 0:
+            raise AssertionError(f"phase {phase}: {what} did not launch both "
+                                 f"kernels on cuda: {got}")
+        for k in launches:
+            launches[k] += got[k]
+        return out, got
+
+    return on_cuda
+
+
 def run_options(fx_1mb: dict, cache: str, recs_1mb: list,
                 stats_1mb: dict) -> dict:
     """Phase 13: the pipeline options on the card. Returns the launches of
@@ -925,22 +973,10 @@ def run_options(fx_1mb: dict, cache: str, recs_1mb: list,
     import torch_options_jobs as jobs
 
     from lancet2_tpu_torch.cli.main import main as port_main
-    from lancet2_tpu_torch.ops import _build
 
     t_phase = time.monotonic()
     launches = {"span": 0, "evidence": 0}
-
-    def on_cuda(what: str, fn):
-        """Run fn with the counts set to 0; both kernels must launch."""
-        _build.reset_launches()
-        out = fn()
-        got = dict(_build.LAUNCHES)
-        if got["span"] == 0 or got["evidence"] == 0:
-            raise AssertionError(f"phase 13: {what} did not launch both "
-                                 f"kernels on cuda: {got}")
-        for k in launches:
-            launches[k] += got[k]
-        return out, got
+    on_cuda = counted_on_cuda(13, launches)
 
     path = os.path.join(cache, "smoke_1mb_stream.vcf.gz")
     st, got = on_cuda("--stream-windows on", lambda: run_port(
@@ -1098,6 +1134,123 @@ def run_options(fx_1mb: dict, cache: str, recs_1mb: list,
     return launches
 
 
+def run_cloud_and_faults(cache: str) -> dict:
+    """Phase 14: phase 13's 30 kb fixture over http and s3, the prep-process
+    faults, a clean run after them in this process, and the golden fixture,
+    all on cuda with the batch executor. Returns the launches of its cuda
+    runs."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_cloud_jobs as cj
+
+    from lancet2_tpu_torch.cbdg.graph import GraphParams
+    from lancet2_tpu_torch.core.read_collector import CollectorParams
+    from lancet2_tpu_torch.core.sample_info import make_sample_list
+    from lancet2_tpu_torch.core.variant_builder import BuilderParams
+
+    t_phase = time.monotonic()
+    launches = {"span": 0, "evidence": 0}
+    on_cuda = counted_on_cuda(14, launches)
+    fx = options_fixture(cache)
+    base = vcf_records(os.path.join(cache, "options", "base.vcf.gz"))
+    cdir = os.path.join(cache, "cloud")
+    os.makedirs(cdir, exist_ok=True)
+
+    def same_as_base(what, res, got, path):
+        recs = vcf_records(path)
+        log(f"phase 14: {what}: {res['windows']} windows, {len(recs)} "
+            f"records, {res['runtime_s']:.2f} s; launches {json.dumps(got)}")
+        if recs != base:
+            raise AssertionError(f"phase 14: {what}: records differ from "
+                                 f"phase 13's run with no option")
+
+    blobs = {}
+    for s in ("normal", "tumor"):
+        with open(fx[s], "rb") as fh:
+            blobs[f"{s}.bam"] = fh.read()
+    path = os.path.join(cdir, "http.vcf.gz")
+    with cj.RangeServer(blobs) as server:
+        argv = port_argv(dict(fx, normal=f"{server.base}/normal.bam",
+                              tumor=f"{server.base}/tumor.bam"), path, "cuda")
+        res, got = on_cuda("http", lambda: cj.run_cli(argv))
+    forked = [m for m in res["log"] if m.startswith("prep: spawned")]
+    log(f"phase 14: http inputs from {server.base}: {forked}")
+    if res["exit"] != 0 or not forked:
+        raise AssertionError(f"phase 14: http: {res['exit']}, prep {forked}")
+    same_as_base("http, forked prep workers", res, got, path)
+
+    path = os.path.join(cdir, "s3.vcf.gz")
+    objects = {"s3://bkt/normal.bam": fx["normal"],
+               "s3://bkt/tumor.bam": fx["tumor"]}
+    argv = port_argv(dict(fx, normal="s3://bkt/normal.bam",
+                          tumor="s3://bkt/tumor.bam"), "s3://bkt/out.vcf.gz",
+                     "cuda")
+    res, got = on_cuda("s3", lambda: cj.run_s3(argv, objects, path))
+    if "error" in res:
+        raise AssertionError(f"phase 14: s3: {res['error']}")
+    prep = [m for m in res["log"] if m.startswith("prep: ")]
+    log(f"phase 14: s3 objects after the run {res['objects']}; {prep}")
+    if "s3://bkt/out.vcf.gz.preflight" not in res["objects"] or not any(
+            m.startswith(cj.THREADS_FOR_LOCAL_TRANSPORT) for m in prep):
+        raise AssertionError("phase 14: s3: no preflight object, or prep "
+                             "did not take threads")
+    same_as_base("s3 in, s3 out, default command", res, got, path)
+
+    samples = make_sample_list([fx["normal"]], [fx["tumor"]], [])
+    params = BuilderParams(
+        graph=GraphParams(num_samples=len(samples), min_anchor_cov=3),
+        collector=CollectorParams(), aligner_backend="evidence")
+    ref, windows = cj.whole_reference(fx["fasta"])
+    for target in ("worker", "coordinator", "coordinator mid-batch"):
+        out = cj.run_and_kill(cj.make_executor(params, ref, samples, windows,
+                                               "cuda"),
+                              target, FAULT_DEADLINE_S)
+        msg = str(out["err"]).splitlines()[0] if out["err"] else None
+        log(f"phase 14: SIGKILL {target} pid {out['killed']}: raised in "
+            f"{out['seconds']:.2f} s: {msg!r}; worker pids from "
+            f"/proc/N/stat {out['kids']}, from /proc/PID/task/PID/children "
+            f"{out['listed']}; /dev/shm segments left "
+            f"{'not listable' if out['leaked'] is None else sorted(out['leaked'])}")
+        want = ("died with exitcode", "window seq") if target == "worker" \
+            else ("died",)
+        if out["killed"] is None or msg is None or not all(
+                w in msg for w in want) or out["leaked"]:
+            raise AssertionError(f"phase 14: SIGKILL {target}: {out}")
+    failed = cj.setup_failures(params, ref, samples, windows, "cuda")
+    for where, want in (("coordinator", "prepare failed: SystemExit("),
+                        ("worker", "prepare failed: TypeError("),
+                        ("thread", "prepare failed: TypeError(")):
+        err, seconds = failed[where]
+        msg = str(err)
+        log(f"phase 14: {where} setup fails: raised in {seconds:.2f} s: "
+            f"{msg.splitlines()[0]!r}; traceback "
+            f"{'Traceback (most recent call last)' in msg}")
+        if not msg.startswith(want) or "Traceback (most recent" not in msg \
+                or seconds >= FAULT_DEADLINE_S:
+            raise AssertionError(f"phase 14: {where} setup: {msg}")
+
+    path = os.path.join(cdir, "after_faults.vcf.gz")
+    res, got = on_cuda("the clean run after the faults", lambda: cj.run_cli(
+        port_argv(fx, path, "cuda")))
+    same_as_base("clean run after the faults, same process", res, got, path)
+
+    gdir = os.path.join(cdir, "golden")
+    os.makedirs(gdir, exist_ok=True)
+    fasta, normal, tumor = cj.golden_fixture(gdir)
+    path = os.path.join(cdir, "golden.vcf.gz")
+    res, got = on_cuda("golden", lambda: cj.run_cli(
+        ["pipeline", "-n", normal, "-t", tumor, "-r", fasta, "-o", path,
+         "-T", "2", "--device", "cuda"]))
+    recs = vcf_records(path)
+    log(f"phase 14: golden fixture: {res['windows']} windows, {len(recs)} "
+        f"records, {res['runtime_s']:.2f} s; launches {json.dumps(got)}")
+    if recs != cj.golden_records():
+        raise AssertionError("phase 14: golden: records differ from "
+                             "tests/data/golden_somatic.vcf")
+    log(f"phase 14: every step passed; launches {json.dumps(launches)}; "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1208,10 +1361,11 @@ def main() -> int:
     swres = check_sw_fitting(dev)
     step_res = run_window_step(dev)
     check_pls(dev)
-    thr_launches = run_threads(fx, cache, recs, region, got["cuda"])
+    thr_launches = run_threads(fx, cache, region, got["cuda"])
     mesh_launches = run_multi_device(fx, cache, recs)
     run_graph_build(fx, cache, region, got["cuda"])
     opt_launches = run_options(fx, cache, recs, stats)
+    cloud_launches = run_cloud_and_faults(cache)
 
     clock_hz = card_clock_hz()
     log(f"phase 10: bounds at {clock_hz / 1e6:.0f} MHz x {sms} SMs x "
@@ -1234,6 +1388,7 @@ def main() -> int:
             "launches_threads": thr_launches[launch_key],
             "launches_mesh": mesh_launches[launch_key],
             "launches_options": opt_launches[launch_key],
+            "launches_cloud": cloud_launches[launch_key],
             "max_abs_err": max(errs), "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,

@@ -34,6 +34,7 @@ import os
 import queue
 import threading
 import time
+import traceback
 from collections import deque
 
 import numpy as np
@@ -50,6 +51,7 @@ from lancet2_tpu_torch.core.prep_worker import (
     coordinator_main,
     map_pair_arrays,
     prepare_and_pack,
+    unlink_segment,
 )
 from lancet2_tpu_torch.core.variant_builder import (
     BuilderParams,
@@ -57,6 +59,7 @@ from lancet2_tpu_torch.core.variant_builder import (
     VariantBuilder,
 )
 from lancet2_tpu_torch.core.variant_store import VariantStore
+from lancet2_tpu_torch.hts.uri import scheme_served_here
 from lancet2_tpu_torch.ops.evidence_layout import R_MAX
 from lancet2_tpu_torch.ops.genotype import batched_genotype_pls_exact
 from lancet2_tpu_torch.utils.logging import get_logger
@@ -161,7 +164,26 @@ class TorchBatchPipelineExecutor:
     # threads of this process
     # ------------------------------------------------------------------
     def _use_processes(self) -> bool:
+        """Fork prep workers from a spawned coordinator, or prep in threads.
+        Inputs over a transport registered in this process (s3://, gs://:
+        hts/uri.py's registry is process memory) open only here, so `auto`
+        takes threads for them and `processes` refuses them before
+        spawning."""
         if self.prep_mode == "threads":
+            return False
+        paths = [s.path for s in self.samples] + [self.ref.path]
+        local = sorted({scheme_served_here(p) for p in paths if p} - {None})
+        if local and self.prep_mode == "processes":
+            raise ValueError(
+                f"--prep-mode processes: the {', '.join(local)}:// inputs "
+                "are served by a transport registered in this process, "
+                "which a spawned prep coordinator does not have; use "
+                "--prep-mode threads")
+        if local:
+            LOG.info("prep: threads, not processes: the %s:// inputs are "
+                     "served by a transport registered in this process, "
+                     "which a spawned prep coordinator would not have",
+                     ", ".join(local))
             return False
         if self.prep_mode == "processes":
             return True
@@ -213,10 +235,18 @@ class TorchBatchPipelineExecutor:
         self._result_q = queue.Queue()
 
         def thread_main():
-            samples = [copy.copy(s) for s in self.samples]
-            builder = VariantBuilder(self.params, self.ref, samples,
-                                     reader_pool=self._reader_pool)
-            genotyper = Genotyper(backend="evidence")
+            # a failure is reported, never left to end the thread unheard:
+            # the setup's as a fatal, a window's as that window's error
+            # (BaseException: hts_open raises SystemExit)
+            try:
+                samples = [copy.copy(s) for s in self.samples]
+                builder = VariantBuilder(self.params, self.ref, samples,
+                                         reader_pool=self._reader_pool)
+                genotyper = Genotyper(backend="evidence")
+            except BaseException as exc:
+                self._result_q.put(
+                    (-1, "fatal", (repr(exc), traceback.format_exc())))
+                return
             while True:
                 item = self._work_q.get()
                 if item is None:
@@ -228,9 +258,7 @@ class TorchBatchPipelineExecutor:
                         max_regions, lt_buckets, lq_buckets,
                     )
                     self._result_q.put((seq, "ok", payload))
-                except Exception as exc:
-                    import traceback
-
+                except BaseException as exc:
                     self._result_q.put(
                         (seq, "error", (repr(exc), traceback.format_exc()))
                     )
@@ -268,14 +296,7 @@ class TorchBatchPipelineExecutor:
         for payload in self._results.values():
             pairs = getattr(payload, "pairs", None)
             if pairs and "shm" in pairs:
-                try:
-                    from multiprocessing import shared_memory
-
-                    seg = shared_memory.SharedMemory(name=pairs["shm"])
-                    seg.close()
-                    seg.unlink()
-                except Exception:
-                    pass
+                unlink_segment(pairs["shm"])
         self._results.clear()
 
     _DRAIN_STOP = ("__drain_stop__", None, None)
@@ -289,7 +310,10 @@ class TorchBatchPipelineExecutor:
                 seq, kind, payload = item
                 with self._results_cv:
                     if kind in ("error", "fatal"):
-                        self._drain_error = payload
+                        # the first report names the cause; a coordinator's
+                        # note that the reporting worker then exited follows
+                        if self._drain_error is None:
+                            self._drain_error = payload
                     else:
                         self._results[seq] = payload
                     self._results_cv.notify_all()
@@ -311,8 +335,8 @@ class TorchBatchPipelineExecutor:
                 if all(s in self._results for s in seqs):
                     return [self._results.pop(s) for s in seqs]
                 self._results_cv.wait(timeout=1.0)
-                if self._procs and not any(p.is_alive()
-                                           for p in self._procs):
+                workers = self._procs or self._threads
+                if workers and not any(w.is_alive() for w in workers):
                     # give the drain thread one beat to surface a queued
                     # fatal before declaring silent death
                     self._results_cv.wait(timeout=1.0)
@@ -321,8 +345,10 @@ class TorchBatchPipelineExecutor:
                     if all(s in self._results for s in seqs):
                         continue
                     missing = [s for s in seqs if s not in self._results]
+                    who = ("prep coordinator" if self._procs
+                           else "prep threads")
                     raise RuntimeError(
-                        "prep coordinator died without reporting; "
+                        f"{who} died without reporting; "
                         f"windows (seq) never prepared: {missing[:8]}"
                     )
 

@@ -150,15 +150,25 @@ def _pair_array_layout(n: int, lq: int, nr: int, nh: int, lh: int):
 
 
 def _alloc_pair_arrays(n: int, lq: int, nr: int, nh: int, lh: int,
-                       use_shm: bool):
+                       shm_prefix: str | None):
+    """The pair arrays in numpy memory, or with `shm_prefix` in one shared
+    memory segment named `shm_prefix` + random hex."""
     layout, total = _pair_array_layout(n, lq, nr, nh, lh)
-    if not use_shm:
+    if shm_prefix is None:
         arrays = {nm: np.empty(shape, dt)
                   for nm, _off, shape, dt in layout}
         return arrays, None
+    import secrets
     from multiprocessing import shared_memory
 
-    shm = shared_memory.SharedMemory(create=True, size=max(total, 1))
+    while True:
+        try:
+            shm = shared_memory.SharedMemory(
+                name=shm_prefix + secrets.token_hex(4), create=True,
+                size=max(total, 1))
+            break
+        except FileExistsError:
+            continue
     try:
         # ownership transfers to the executor (it unlinks after consuming);
         # unregister from THIS process's resource tracker so worker exit
@@ -211,9 +221,11 @@ def map_pair_arrays(pairs: dict):
 
 def prepare_and_pack(builder, genotyper, window, band_margin,
                      max_regions: int, lt_buckets, lq_buckets,
-                     use_shm: bool = False, shm_notify=None) -> PackedWindow:
+                     shm_prefix: str | None = None,
+                     shm_notify=None) -> PackedWindow:
     """Run phase A (gate/collect/assemble/extract/annotate) + pair building
-    + padding for one window; returns the packed payload."""
+    + padding for one window; returns the packed payload. With `shm_prefix`
+    the pair arrays travel in a shared-memory segment of that prefix."""
     from lancet2_tpu_torch.base.dna import encode
     from lancet2_tpu_torch.core.variant_builder import PreparedWindow
 
@@ -262,7 +274,7 @@ def prepare_and_pack(builder, genotyper, window, band_margin,
                 lt_buckets,
             )
             arrays, shm = _alloc_pair_arrays(
-                n_pairs, lq_b, n_reads, n_haps, hap_w, use_shm
+                n_pairs, lq_b, n_reads, n_haps, hap_w, shm_prefix
             )
             arrays["reads_q"][:] = 5
             arrays["reads_qu"][:] = 0
@@ -332,6 +344,28 @@ def warm_readers(samples, params, reader_pool: dict,
 
 
 _SHM_SLOT_W = 256  # bytes per worker in the in-flight-segment name table
+SHM_PREFIX = "psm_"  # multiprocessing's own prefix for segment names
+
+
+def unlink_segment(name: str) -> None:
+    """Remove the shared-memory segment `name`, if it still exists."""
+    from multiprocessing import shared_memory
+
+    try:
+        seg = shared_memory.SharedMemory(name=name)
+        seg.close()
+        seg.unlink()
+    except Exception:
+        pass
+
+
+def _report_fatal(result_q, exc: BaseException) -> None:
+    """Put a fatal carrying `exc` and its traceback on the result queue,
+    flush the queue's feeder and exit 1. Call it from an except block."""
+    result_q.put((-1, "fatal", (repr(exc), traceback.format_exc())))
+    result_q.close()
+    result_q.join_thread()
+    os._exit(1)
 
 
 def process_worker_main(work_q, result_q, params, ref, samples, reader_pool,
@@ -368,22 +402,19 @@ def process_worker_main(work_q, result_q, params, ref, samples, reader_pool,
                     raw = bytes(shm_slots[base : base + _SHM_SLOT_W])
                     name = raw.split(b"\x00", 1)[0].decode(errors="replace")
                     if name:
-                        try:
-                            from multiprocessing import shared_memory
-
-                            seg = shared_memory.SharedMemory(name=name)
-                            seg.close()
-                            seg.unlink()
-                        except Exception:
-                            pass
+                        unlink_segment(name)
                 os._exit(1)
             time.sleep(2.0)
 
     import threading
 
+    coordinator = os.getppid()
     threading.Thread(
-        target=_watchdog, args=(os.getppid(),), daemon=True
+        target=_watchdog, args=(coordinator,), daemon=True
     ).start()
+    # a run's segments carry its coordinator's pid, so that what a run left
+    # in /dev/shm can be told from another run's
+    shm_prefix = f"{SHM_PREFIX}{coordinator}_"
 
     try:
         from lancet2_tpu_torch.caller.genotyper import Genotyper
@@ -393,6 +424,12 @@ def process_worker_main(work_q, result_q, params, ref, samples, reader_pool,
         builder = VariantBuilder(params, ref, worker_samples,
                                  reader_pool=reader_pool)
         genotyper = Genotyper(backend="evidence")
+    except BaseException as exc:
+        # a setup that fails is reported, never swallowed: the executor
+        # raises with it (SystemExit too: hts_open raises it for a URI it
+        # cannot open)
+        _report_fatal(result_q, exc)
+    try:
         while True:
             item = work_q.get()
             if item is None:
@@ -414,9 +451,17 @@ def process_worker_main(work_q, result_q, params, ref, samples, reader_pool,
             try:
                 payload = prepare_and_pack(
                     builder, genotyper, window, band_margin,
-                    max_regions, lt_buckets, lq_buckets, use_shm=True,
+                    max_regions, lt_buckets, lq_buckets,
+                    shm_prefix=shm_prefix,
                     shm_notify=shm_notify,
                 )
+                if os.getppid() != coordinator:
+                    # the coordinator is gone and the executor stops reading
+                    # results once it sees that: a payload handed over now
+                    # would leave its segment in /dev/shm
+                    if "shm" in (payload.pairs or {}):
+                        unlink_segment(payload.pairs["shm"])
+                    os._exit(1)
                 result_q.put((seq, "ok", payload))
             except Exception as exc:  # report, then keep serving
                 result_q.put(
@@ -516,6 +561,7 @@ def coordinator_main(work_q, result_q, params, ref_path, samples,
 
         while True:
             if all(not w.is_alive() for w in workers):
+                _check_queue_drained(work_q, workers)
                 break
             for i, w in enumerate(workers):
                 if not w.is_alive() and w.exitcode not in (0, None):
@@ -524,14 +570,7 @@ def coordinator_main(work_q, result_q, params, ref_path, samples,
                     raw = bytes(shm_slots[base : base + _SHM_SLOT_W])
                     name = raw.split(b"\x00", 1)[0].decode(errors="replace")
                     if name:
-                        try:
-                            from multiprocessing import shared_memory
-
-                            seg = shared_memory.SharedMemory(name=name)
-                            seg.close()
-                            seg.unlink()
-                        except Exception:
-                            pass
+                        unlink_segment(name)
                     result_q.put((-1, "fatal", (
                         f"prep worker pid {w.pid} died with exitcode "
                         f"{w.exitcode} while processing window seq {seq}",
@@ -545,9 +584,31 @@ def coordinator_main(work_q, result_q, params, ref_path, samples,
             _time.sleep(0.1)
         for w in workers:
             w.join()
-    except Exception as exc:
-        result_q.put((-1, "fatal", (repr(exc), traceback.format_exc())))
-    finally:
-        result_q.close()
-        result_q.join_thread()
-        os._exit(0)
+    except BaseException as exc:
+        # SystemExit too: hts_open raises it for a URI it cannot open
+        _report_fatal(result_q, exc)
+    result_q.close()
+    result_q.join_thread()
+    os._exit(0)
+
+
+def _check_queue_drained(work_q, workers) -> None:
+    """Raise if every worker has exited while windows were still queued: each
+    exits 0 only after a shutdown sentinel, so a window left behind means
+    the executor would wait for it forever."""
+    import queue
+
+    left = []
+    while True:
+        try:
+            item = work_q.get(timeout=0.05)
+        except queue.Empty:
+            break
+        if item is not None:
+            left.append(item[0])
+    if left:
+        exits = ", ".join(f"pid {w.pid} exitcode {w.exitcode}"
+                          for w in workers)
+        raise RuntimeError(
+            f"every prep worker exited ({exits}) while windows (seq) "
+            f"{left[:8]} were still queued")

@@ -59,6 +59,22 @@ def get_transport(path: str):
     return t
 
 
+def scheme_served_here(path: str) -> str | None:
+    """The scheme of `path` if a transport registered in this process serves
+    it: any registered scheme but the http/https transports that
+    `get_transport` builds by itself. The registry is process memory, so a
+    spawned interpreter (the batch executor's prep coordinator) has no
+    transport for such a scheme and cannot open the path."""
+    scheme, sep, _ = path.partition("://")
+    if not sep:
+        return None
+    transport = _TRANSPORTS.get(scheme)
+    if transport is None or (scheme in ("http", "https")
+                             and type(transport) is HttpTransport):
+        return None
+    return scheme
+
+
 def validate_uri_shape(path: str) -> None:
     """Raise ValueError for malformed cloud URIs (scheme but no bucket/key)."""
     if not is_cloud_uri(path):

@@ -407,13 +407,9 @@ def make_chr_scale_fixture(ref_kb: int, cache_dir: str, seed: int = 11,
             somatic.append(Variant(pos, "ACGTA"[: 1 + int(rng.integers(2, 5))], "A", vaf=0.35))
         pos += 1700 + int(rng.integers(0, 400))
         i += 1
-    # planted alleles must match the actual reference bases: build the ref
-    # once, rewrite the variant list against it, then build the real fixture
-    fx = make_tumor_normal_fixture(
-        fixdir, ref_len=ref_len, somatic=[], germline=[],
-        normal_cov=normal_cov, tumor_cov=tumor_cov, seed=seed,
-    )
-    ref_seq = fx["ref_seq"]
+    # planted alleles must match the actual reference bases: rewrite the
+    # variant list against the reference make_tumor_normal_fixture builds
+    ref_seq = random_reference(ref_len, seed=seed)
     fixed = []
     for v in somatic:
         if v.kind == "SNV":

@@ -172,13 +172,19 @@ def test_port_modules_import_without_jax():
 
 
 def test_port_sources_import_no_jax():
-    """Static check: no module of the port, and not chip_smoke.py, imports
-    jax or the JAX package (lancet2_tpu_torch itself aside)."""
+    """Static check: no module of the port, not chip_smoke.py and not the
+    port's test helpers (tests/torch_*.py, which run the port's side of its
+    tests and of chip_smoke.py) import jax or the JAX package
+    (lancet2_tpu_torch itself aside)."""
     import ast
     import pathlib
 
     files = sorted(pathlib.Path(ROOT, "lancet2_tpu_torch").rglob("*.py"))
     files.append(pathlib.Path(ROOT, "chip_smoke.py"))
+    helpers = sorted(pathlib.Path(ROOT, "tests").glob("torch_*.py"))
+    assert {p.name for p in helpers} >= {"torch_options_jobs.py",
+                                         "torch_cloud_jobs.py"}
+    files += helpers
     rel = {str(p.relative_to(ROOT)) for p in files}
     for name in NEW_MODULES:
         assert name.replace(".", "/") + ".py" in rel, name
