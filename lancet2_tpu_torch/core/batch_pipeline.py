@@ -49,6 +49,7 @@ from lancet2_tpu_torch.caller.variant_call import VariantCall
 from lancet2_tpu_torch.core.prep_worker import (
     PackedWindow,
     coordinator_main,
+    log_decode_route,
     map_pair_arrays,
     prepare_and_pack,
     unlink_segment,
@@ -241,7 +242,8 @@ class TorchBatchPipelineExecutor:
 
         with self.timer.stage("prep.decode"):
             warm_readers(self.samples, self.params, self._reader_pool,
-                         need_event_index=not self.params.skip_active_region)
+                         need_event_index=not self.params.skip_active_region,
+                         timer=self.timer)
             native_core.available()
         self._work_q = queue.Queue()
         self._result_q = queue.Queue()
@@ -589,6 +591,7 @@ class TorchBatchPipelineExecutor:
             for trace in self._coordinator_traces:
                 timer.absorb(trace)
             self._coordinator_traces = []
+            log_decode_route(timer.counters)
 
         with timer.stage("output.flush"):
             flushed += self.store.flush_all(out)

@@ -223,10 +223,13 @@ class PipelineExecutor:
         # decode and index the inputs, and build (or load) the native
         # assembly core, once, before any worker runs
         from lancet2_tpu_torch.base import native_core
-        from lancet2_tpu_torch.core.prep_worker import warm_readers
+        from lancet2_tpu_torch.core.prep_worker import (
+            log_decode_route, warm_readers)
 
         warm_readers(self.samples, self.params, self._reader_pool,
-                     need_event_index=not self.params.skip_active_region)
+                     need_event_index=not self.params.skip_active_region,
+                     timer=self.stage_timer)
+        log_decode_route(self.stage_timer.counters)
         native_core.available()
         feed_thread = threading.Thread(target=feeder, daemon=True)
         feed_thread.start()

@@ -29,7 +29,10 @@ from typing import NamedTuple
 
 import numpy as np
 
+from lancet2_tpu_torch.utils.logging import get_logger
 from lancet2_tpu_torch.utils.profiling import StageTimer
+
+LOG = get_logger("prep_worker")
 
 
 class ReadLite(NamedTuple):
@@ -332,18 +335,26 @@ def _prepare_and_pack(builder, genotyper, window, band_margin,
     )
 
 
-def warm_readers(samples, params, reader_pool: dict,
-                 need_event_index: bool) -> None:
+def warm_readers(samples, params, reader_pool: dict, need_event_index: bool,
+                 timer: StageTimer) -> None:
     """Decode every input file + build indexes in the PARENT before forking
-    so child processes inherit the columnar pools copy-on-write."""
-    from lancet2_tpu_torch.core.read_collector import CollectorParams, ReadCollector
+    so child processes inherit the columnar pools copy-on-write. Counts the
+    BAM records each decode route took on `timer` (`prep.records_native`,
+    `prep.records_python`)."""
+    from lancet2_tpu_torch.core.read_collector import ReadCollector
+    from lancet2_tpu_torch.hts.bam import BamReader
 
     collector = ReadCollector(params.collector, samples,
                               reader_pool=reader_pool)
+    records = {"native": 0, "python": 0}
     for reader in collector.readers.values():
-        if reader.__class__.__name__ == "StreamingBamReader" or \
-                getattr(reader, "_cols", None) is None:
+        if not isinstance(reader, BamReader):
+            continue  # CRAM and streamed BAMs decode on their own routes
+        cols = reader._cols
+        if cols is None:
+            records["python"] += len(reader._records_raw)
             continue
+        records["native"] += cols["count"]
         if getattr(reader, "_by_contig", None) is None:
             reader._build_index()
         reader.codes_pool()
@@ -352,6 +363,20 @@ def warm_readers(samples, params, reader_pool: dict,
             from lancet2_tpu_torch.core.active_region import _event_index
 
             _event_index(reader)
+    for route, n in records.items():
+        timer.count(f"prep.records_{route}", n)
+
+
+def log_decode_route(counters: dict) -> None:
+    """One log line naming the route that decoded the job's BAM records,
+    from `warm_readers`' counters."""
+    n_native = counters.get("prep.records_native", 0)
+    n_python = counters.get("prep.records_python", 0)
+    if n_native or n_python:
+        from lancet2_tpu_torch.hts import native
+
+        LOG.info("BAM decode: %d records native (%s), %d in Python", n_native,
+                 native.build_route() if n_native else "-", n_python)
 
 
 TRACE_SEQ = -2  # the seq of the coordinator's "trace" message
@@ -548,7 +573,8 @@ def coordinator_main(work_q, result_q, params, ref_path, samples,
         timer = StageTimer(record=record)
         with timer.stage("prep.decode"):
             warm_readers(samples, params, reader_pool,
-                         need_event_index=not params.skip_active_region)
+                         need_event_index=not params.skip_active_region,
+                         timer=timer)
             # build (or load) the native assembly core once, before the
             # fork: the workers inherit the loaded library instead of each
             # building it

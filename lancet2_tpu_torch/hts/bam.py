@@ -9,8 +9,8 @@ Design notes (TPU-first pipeline):
   * Whole-file decode into per-contig, start-sorted in-memory record arrays;
     region queries are then binary searches. Windows are served thousands of
     times per contig, so one linear decode amortizes far better than htslib's
-    per-window BGZF seeks. A native C++/libdeflate decoder is the planned
-    replacement for multi-GB inputs (same interface).
+    per-window BGZF seeks. The port's C++ decoder (csrc/bam_decoder.cpp via
+    hts.native) parses records into columns when it builds.
   * Field decode is lazy-ish: seq/qual are kept as raw packed bytes until a
     record is actually collected for assembly (mirrors the reference's
     measured 3-4x lazy-decode win, SURVEY.md hts layer notes).
@@ -327,19 +327,21 @@ def open_bam(path: str, stream: bool = False, ref: str | None = None):
 class BamReader:
     """Decode a BAM file into memory with per-contig region query support.
 
-    Uses the native libdeflate-backed decoder (native/bam_decoder.cpp via
-    lancet2_tpu_torch.hts.native) when available: parallel BGZF inflation +
-    columnar record parse with lazy BamRecord materialization. Falls back
-    to the pure-Python path (the correctness baseline) otherwise.
+    Uses the port's native decoder (csrc/bam_decoder.cpp via
+    lancet2_tpu_torch.hts.native) when it builds: BGZF inflation on threads
+    + columnar record parse with lazy BamRecord materialization. Falls back
+    to the pure-Python path (the correctness baseline) otherwise, or when
+    `use_native` is False.
     """
 
     def __init__(self, path: str, use_native: bool = True):
         self.path = path
         from lancet2_tpu_torch.hts import native
 
-        raw = hts_open(path, "rb").read()
-        data = native.bgzf_inflate(raw) if use_native else None
-        if data is None:
+        if use_native:
+            with hts_open(path, "rb") as fh:
+                data = native.bgzf_inflate(fh.read())
+        else:
             data = bgzf.decompress_file(path)
         if data[:4] != BAM_MAGIC:
             raise ValueError(f"{path} is not a BAM file")

@@ -6,9 +6,10 @@ terminated by a fixed 28-byte EOF block. Output written here is readable by
 standard htslib/bgzip tooling.
 
 Replaces the role of the reference's htslib BGZF layer and BgzfOstream
-(reference: src/lancet/hts/bgzf_ostream.{h,cpp}). A native C++ decoder with
-libdeflate is the planned hot-path replacement; this module defines the
-format contract and is the correctness baseline.
+(reference: src/lancet/hts/bgzf_ostream.{h,cpp}). This module defines the
+format contract and is the correctness baseline; `hts.native.bgzf_inflate`
+inflates a whole file's blocks on threads with the same checks
+(`block_spans`, `inflate_block`).
 """
 
 from __future__ import annotations
@@ -30,23 +31,21 @@ class BgzfError(ValueError):
     pass
 
 
-def _read_block(fh) -> bytes | None:
-    """Read and inflate one BGZF block; None at clean EOF."""
-    header = fh.read(12)
-    if len(header) == 0:
-        return None
-    if len(header) < 12:
-        raise BgzfError("truncated BGZF header")
+def _header_xlen(header: bytes) -> int:
+    """XLEN of a block's 12-byte gzip header; raises when it is not BGZF."""
     magic1, magic2, method, flags, _mtime, _xfl, _os, xlen = struct.unpack(
         "<BBBBIBBH", header
     )
     if magic1 != 0x1F or magic2 != 0x8B or method != 8 or not flags & 4:
         raise BgzfError("not a BGZF block (bad gzip magic/flags)")
-    extra = fh.read(xlen)
-    if len(extra) < xlen:
-        raise BgzfError("truncated BGZF extra field")
+    return xlen
+
+
+def _block_size(extra: bytes) -> int:
+    """BSIZE (the whole block's length) from the BC subfield."""
     bsize = None
     off = 0
+    xlen = len(extra)
     while off + 4 <= xlen:
         si1, si2, slen = extra[off], extra[off + 1], struct.unpack_from("<H", extra, off + 2)[0]
         if si1 == 0x42 and si2 == 0x43 and slen == 2:
@@ -54,11 +53,12 @@ def _read_block(fh) -> bytes | None:
         off += 4 + slen
     if bsize is None:
         raise BgzfError("missing BC subfield: not BGZF")
-    cdata_len = bsize - xlen - 19 - 1
-    cdata = fh.read(cdata_len)
-    tail = fh.read(8)
-    if len(cdata) < cdata_len or len(tail) < 8:
-        raise BgzfError("truncated BGZF block")
+    return bsize
+
+
+def inflate_block(cdata, tail) -> bytes:
+    """Inflate a block's deflate data and check it against its 8-byte tail
+    (CRC32, ISIZE)."""
     crc_expected, isize = struct.unpack("<II", tail)
     data = zlib.decompress(cdata, wbits=-15)
     if len(data) != isize:
@@ -66,6 +66,47 @@ def _read_block(fh) -> bytes | None:
     if zlib.crc32(data) != crc_expected:
         raise BgzfError("BGZF CRC mismatch")
     return data
+
+
+def _read_block(fh) -> bytes | None:
+    """Read and inflate one BGZF block; None at clean EOF."""
+    header = fh.read(12)
+    if len(header) == 0:
+        return None
+    if len(header) < 12:
+        raise BgzfError("truncated BGZF header")
+    xlen = _header_xlen(header)
+    extra = fh.read(xlen)
+    if len(extra) < xlen:
+        raise BgzfError("truncated BGZF extra field")
+    cdata_len = _block_size(extra) - xlen - 19 - 1
+    cdata = fh.read(cdata_len)
+    tail = fh.read(8)
+    if len(cdata) < cdata_len or len(tail) < 8:
+        raise BgzfError("truncated BGZF block")
+    return inflate_block(cdata, tail)
+
+
+def block_spans(raw) -> list[tuple[int, int]]:
+    """(start, end) of every block's deflate data in a whole BGZF file held
+    in memory; each block's tail is raw[end:end + 8]. Raises as
+    `_read_block` does on a malformed or truncated block."""
+    spans = []
+    off, size = 0, len(raw)
+    while off < size:
+        if size - off < 12:
+            raise BgzfError("truncated BGZF header")
+        xlen = _header_xlen(raw[off : off + 12])
+        extra = raw[off + 12 : off + 12 + xlen]
+        if len(extra) < xlen:
+            raise BgzfError("truncated BGZF extra field")
+        start = off + 12 + xlen
+        end = off + _block_size(extra) - 8
+        if end < start or end + 8 > size:
+            raise BgzfError("truncated BGZF block")
+        spans.append((start, end))
+        off = end + 8
+    return spans
 
 
 def decompress_file(path: str) -> bytes:

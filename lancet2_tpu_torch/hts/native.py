@@ -1,47 +1,43 @@
-"""ctypes bindings for the native BGZF/BAM decoder (native/bam_decoder.cpp).
+"""ctypes bindings for the port's columnar BAM decoder (csrc/bam_decoder.cpp).
 
-Builds the shared library from the repo's native/bam_decoder.cpp on first
-use, into this package's own build directory (g++ + libdeflate;
-utils/native_build.py) and exposes:
+Builds the shared library from the package's csrc/bam_decoder.cpp on first
+use, into this package's own build directory (g++ with no link flags: the
+source needs no third-party header or library; utils/native_build.py), and
+exposes:
 
-  bgzf_inflate(raw: bytes) -> bytes        parallel libdeflate inflation
+  bgzf_inflate(raw: bytes) -> bytes        BGZF blocks inflated on threads
   parse_records(buf, off)  -> dict of numpy columnar arrays + pools
+  hash_batch, event_scan                   qname hashes, active-region events
 
-The build tries, in order: the system's libdeflate header and `-ldeflate`;
-the port's declaration of the three libdeflate functions the decoder calls
-(csrc/libdeflate_decl/libdeflate.h, for a host with the library but not its
-header) with `-ldeflate`; the same with the runtime library's soname
-(`-l:libdeflate.so.0`, for a host without the unversioned link). When every
-attempt fails, hts.bam decodes in Python, the correctness baseline: the
-failure is logged once, and `build_error()` returns the compiler's messages.
+Inflation is Python's zlib, which releases the GIL while it inflates, over a
+small thread pool; it needs no library. When the build fails, hts.bam
+decodes records in Python, the correctness baseline: the failure is logged
+once, and `build_error()` returns the compiler's messages.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from lancet2_tpu_torch.hts import bgzf
 from lancet2_tpu_torch.utils.logging import get_logger
 from lancet2_tpu_torch.utils.native_build import build_library
 
 LOG = get_logger("native")
 
-_DECL_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc",
-    "libdeflate_decl")
-BUILD_ATTEMPTS = (
-    ("system header, -ldeflate", ("-ldeflate",)),
-    ("port declaration, -ldeflate", ("-I", _DECL_DIR, "-ldeflate")),
-    ("port declaration, libdeflate.so.0",
-     ("-I", _DECL_DIR, "-l:libdeflate.so.0")),
-)
+_CSRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+ROUTE = "csrc/bam_decoder.cpp, zlib inflation, no library linked"
+_MAX_INFLATE_THREADS = 8
 
 _lib = None
-_load_failed = False
-_build_log: list[tuple[str, str | None]] = []  # (attempt, error or None)
+_build_err: str | None = None  # set once the build or load has failed
 
 
 def _error_text(exc: Exception) -> str:
@@ -51,63 +47,41 @@ def _error_text(exc: Exception) -> str:
     return repr(exc)
 
 
-def _build():
-    """Load the decoder from the first build attempt that works."""
-    for name, flags in BUILD_ATTEMPTS:
-        try:
-            lib = ctypes.CDLL(build_library("bam_decoder.cpp", flags))
-        except (subprocess.CalledProcessError, OSError) as exc:
-            _build_log.append((name, _error_text(exc)))
-            continue
-        _build_log.append((name, None))
-        return lib
-    return None
-
-
 def build_error() -> str | None:
-    """The messages of every failed build attempt when no attempt loaded
-    (the decoder is then unavailable); None when one did or none ran."""
+    """The compiler's (or loader's) messages when the decoder failed to
+    build or load; None when it loaded."""
     _ensure_lib()
-    if _lib is not None or not _build_log:
-        return None
-    return "\n".join(f"[{name}] {err}" for name, err in _build_log)
+    return _build_err
 
 
 def build_route() -> str | None:
-    """The build attempt that loaded the decoder, if any."""
-    _ensure_lib()
-    return next((name for name, err in _build_log if err is None), None)
+    """The build route that loaded the decoder; None when it did not."""
+    return ROUTE if _ensure_lib() is not None else None
 
 
 def _ensure_lib():
-    global _lib, _load_failed
-    if _lib is not None or _load_failed:
+    global _lib, _build_err
+    if _lib is not None or _build_err is not None:
         return _lib
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
     try:
-        lib = _build()
-        if lib is None:
-            _load_failed = True
-            LOG.warning("native BAM decoder unavailable, decoding in "
-                        "Python: %s", "; ".join(
-                            f"[{n}] {e.splitlines()[-1] if e else e}"
-                            for n, e in _build_log))
-            return None
-        lib.l2t_bgzf_inflate.restype = ctypes.c_int
-        lib.l2t_bgzf_inflate.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t,
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t),
-        ]
-        lib.l2t_free.argtypes = [ctypes.c_void_p]
+        lib = ctypes.CDLL(build_library("bam_decoder.cpp", _CSRC))
         lib.l2t_bam_count.restype = ctypes.c_int64
         lib.l2t_bam_count.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t]
         lib.l2t_bam_parse.restype = ctypes.c_int64
-        lib.l2t_event_scan.restype = ctypes.c_int64
+        lib.l2t_bam_parse.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t, i64,
+            *[vp] * 20,  # 15 columns, 5 pools
+        ]
         lib.l2t_hash_batch.restype = None
+        lib.l2t_hash_batch.argtypes = [vp, vp, vp, i64, vp]
+        lib.l2t_event_scan.restype = ctypes.c_int64
+        lib.l2t_event_scan.argtypes = [i64, *[vp] * 12, i64, vp, vp, vp]
         _lib = lib
-    except Exception as exc:
-        _build_log.append(("bind", _error_text(exc)))
-        _load_failed = True
-        _lib = None
+    except (subprocess.CalledProcessError, OSError, AttributeError) as exc:
+        _build_err = _error_text(exc)
+        LOG.warning("native BAM decoder unavailable, decoding in Python: %s",
+                    _build_err.splitlines()[-1])
     return _lib
 
 
@@ -115,19 +89,21 @@ def available() -> bool:
     return _ensure_lib() is not None
 
 
-def bgzf_inflate(raw: bytes) -> bytes | None:
-    lib = _ensure_lib()
-    if lib is None:
-        return None
-    out_ptr = ctypes.c_void_p()
-    out_size = ctypes.c_size_t()
-    rc = lib.l2t_bgzf_inflate(raw, len(raw), ctypes.byref(out_ptr), ctypes.byref(out_size))
-    if rc != 0:
-        return None
-    try:
-        return ctypes.string_at(out_ptr, out_size.value)
-    finally:
-        lib.l2t_free(out_ptr)
+def bgzf_inflate(raw: bytes) -> bytes:
+    """Inflate a whole BGZF file held in memory: the bytes of
+    `bgzf.decompress_file`, with its checks (ISIZE, CRC32, framing),
+    contiguous runs of blocks on up to 8 threads."""
+    spans = bgzf.block_spans(raw)
+    view = memoryview(raw)
+    n = min(_MAX_INFLATE_THREADS, os.cpu_count() or 1)
+    step = max(1, -(-len(spans) // n))
+    runs = [spans[i : i + step] for i in range(0, len(spans), step)]
+
+    def inflate(run):
+        return [bgzf.inflate_block(view[a:b], view[b : b + 8]) for a, b in run]
+
+    with ThreadPoolExecutor(max(1, len(runs))) as pool:
+        return b"".join(itertools.chain.from_iterable(pool.map(inflate, runs)))
 
 
 def parse_records(buf: bytes, off: int) -> dict | None:
@@ -187,8 +163,7 @@ def hash_batch(pool: np.ndarray, offs: np.ndarray, lens: np.ndarray) -> np.ndarr
     lens = np.ascontiguousarray(lens, np.int64)
     out = np.empty(len(offs), np.uint64)
     c = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-    lib.l2t_hash_batch(c(pool), c(offs), c(lens),
-                       ctypes.c_int64(len(offs)), c(out))
+    lib.l2t_hash_batch(c(pool), c(offs), c(lens), len(offs), c(out))
     return out
 
 
@@ -208,12 +183,12 @@ def event_scan(cols: dict) -> tuple | None:
         ev_pos = np.zeros(cap, dtype=np.int64)
         ev_kind = np.zeros(cap, dtype=np.uint8)
         total = int(lib.l2t_event_scan(
-            ctypes.c_int64(n),
+            n,
             c(cols["pos"]), c(cols["flag"]), c(cols["mapq"]),
             c(cols["n_cigar"]), c(cols["cigar_off"]), c(cols["cigar_pool"]),
             c(cols["l_seq"]), c(cols["seq_off"]), c(cols["qual_pool"]),
             c(cols["aux_off"]), c(cols["aux_len"]), c(cols["aux_pool"]),
-            ctypes.c_int64(cap), c(ev_pos), c(ev_kind), c(ev_off),
+            cap, c(ev_pos), c(ev_kind), c(ev_off),
         ))
         if total <= cap:
             return ev_pos[:total], ev_kind[:total].astype(np.int64), ev_off

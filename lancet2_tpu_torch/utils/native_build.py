@@ -1,4 +1,5 @@
-"""Build the repo's shared C++ sources (`native/*.cpp`) for this package.
+"""Build C++ sources for this package: the repo's shared `native/*.cpp` and
+the package's own `csrc/*.cpp`.
 
 The JAX package keeps its own builds beside the sources in `native/`; this
 package never loads those. It compiles each source with g++ into
@@ -32,20 +33,19 @@ def _cpu_flags() -> bytes:
     return b""
 
 
-def build_library(source: str, libs: tuple[str, ...] = ()) -> str:
-    """Compile `native/<source>` (once per source, flags and CPU) and return
-    the path of the shared library. Raises when g++ fails."""
-    src = os.path.join(NATIVE_SRC, source)
+def build_library(source: str, src_dir: str = NATIVE_SRC) -> str:
+    """Compile `<src_dir>/<source>` (once per source, flags and CPU) and
+    return the path of the shared library. Raises when g++ fails."""
+    src = os.path.join(src_dir, source)
     with open(src, "rb") as f:
         code = f.read()
-    flags = (*CXX_FLAGS, *libs)
-    key = hashlib.sha256(code + " ".join(flags).encode() + _cpu_flags())
+    key = hashlib.sha256(code + " ".join(CXX_FLAGS).encode() + _cpu_flags())
     out_dir = os.path.join(BUILD_DIR, key.hexdigest()[:16])
     so = os.path.join(out_dir, os.path.splitext(source)[0] + ".so")
     if not os.path.exists(so):
         os.makedirs(out_dir, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        subprocess.run(["g++", *CXX_FLAGS, src, *libs, "-o", tmp],
+        subprocess.run(["g++", *CXX_FLAGS, src, "-o", tmp],
                        check=True, capture_output=True)
         os.replace(tmp, so)
     return so

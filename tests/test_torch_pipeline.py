@@ -23,6 +23,7 @@ from lancet2_tpu.cli.main import main as jax_cli_main
 from lancet2_tpu.utils.simulate import Variant, make_tumor_normal_fixture, random_reference
 from lancet2_tpu_torch.cli.main import build_parser
 from lancet2_tpu_torch.core.batch_pipeline import check_device
+from lancet2_tpu_torch.hts.bam import BamReader
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # modules of the multi-device path and the device graph build, held by the
@@ -176,6 +177,15 @@ def test_traced_job_keeps_events_only_under_the_profiler(traced):
     assert tr["counters"]["prep.workers"] == 2
     assert out["traced"]["pass2"] == {"total": tr["counters"]["phase_b.pairs"],
                                       "pass2": tr["counters"]["phase_b.pass2_pairs"]}
+
+
+def test_traced_job_decodes_every_record_natively(fixture, traced):
+    _tmp, fx = fixture
+    counters = traced.get()["traced"]["trace"]["counters"]
+    n_records = sum(len(BamReader(fx[s], use_native=False).all_records())
+                    for s in ("tumor", "normal"))
+    assert counters["prep.records_native"] == n_records
+    assert counters["prep.records_python"] == 0
 
 
 def test_traced_job_decode_and_windows_arrive_from_the_prep_processes(traced):
